@@ -1,0 +1,51 @@
+"""Public wrappers around the SQS kernels (mirrors ``repro.kernels.ops``).
+
+They pad the vocabulary to a multiple of 128 with -inf logits and adapt
+the kernel outputs to ``core.sqs.SQSResult``, so the engine swaps the
+``core.sqs`` path and the fused path with one flag.  On a CUDA tensor
+the Hopper kernels run; on a CPU tensor their plain twins.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.slq import reciprocal
+from repro_torch.core.sqs import SQSResult
+from repro_torch.kernels import sqs_fused as k
+
+
+def pad_logits(logits):
+    B, V = logits.shape
+    Vp = k.pad_vocab(V)
+    lp = logits.float()
+    if Vp != V:
+        lp = torch.nn.functional.pad(lp, (0, Vp - V), value=-torch.inf)
+    return lp.contiguous(), V
+
+
+def _result(b, mask, stats, V: int, ell: int) -> SQSResult:
+    return SQSResult(b[:, :V].float() * reciprocal(ell), mask[:, :V].bool(),
+                     stats[:, 0], stats[:, 1].to(torch.int32))
+
+
+def sqs_threshold(logits, beta, temperature: float = 1.0,
+                  ell: int = 100) -> SQSResult:
+    """C-SQS edge step, fused:  softmax(T) → support {q ≥ β} → dropped
+    mass → lattice counts with Σb = ℓ exact.  logits: (B, V); beta: (B,)."""
+    lp, V = pad_logits(logits)
+    beta2 = torch.stack([beta, beta], -1).float().contiguous()
+    b, mask, stats = k.sqs_fused(lp, beta2,
+                                 inv_temp=1.0 / max(temperature, 1e-4),
+                                 ell=ell)
+    return _result(b, mask, stats, V, ell)
+
+
+def sqs_topk(logits, K: int, temperature: float = 1.0,
+             ell: int = 100) -> SQSResult:
+    """K-SQS edge step: bisection top-K threshold (softmax fused in) +
+    fused quantizer."""
+    lp, V = pad_logits(logits)
+    it = 1.0 / max(temperature, 1e-4)
+    tau = k.topk_threshold(lp, K, inv_temp=it)
+    b, mask, stats = k.sqs_fused(lp, tau, inv_temp=it, ell=ell, exact_k=K)
+    return _result(b, mask, stats, V, ell)

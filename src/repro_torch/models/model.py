@@ -1,0 +1,93 @@
+"""Top-level model API (mirrors ``repro.models.model``):
+
+    Transformer(cfg, dtype, device)                -> module (uninitialised;
+                                                     see repro_torch.bridge)
+    prefill(model, tokens, cache_len)              -> (last_logits, cache)
+    extend_step(model, tokens, cache, pos)         -> (logits (B,L,V), cache)
+    decode_step(model, token, cache, pos)          -> (logits (B,V), cache)
+
+A cache is a list with one {"k", "v"} dict of (B, cache_len, nkv, hd)
+tensors per layer; ``extend_step`` writes into it in place.  ``extend_step``
+with L > 1 is the speculative-decoding verification pass.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import (compute_dtype, embed_apply, frozen,
+                                       lm_head_apply, rmsnorm)
+from repro_torch.models.transformer import Block, check_supported
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype=None, device="cpu"):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.dtype = dtype or compute_dtype(cfg)
+        d = cfg.d_model
+        self.embedding = frozen(cfg.vocab, d, dtype=self.dtype, device=device)
+        self.lm_head = None if cfg.tie_embeddings else \
+            frozen(d, cfg.vocab, dtype=self.dtype, device=device)
+        self.layers = nn.ModuleList(Block(cfg, self.dtype, device)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = frozen(d, dtype=torch.float32, device=device,
+                                 fill=1.0)
+
+    @property
+    def device(self):
+        return self.embedding.device
+
+    def head(self, x):
+        x = rmsnorm(x, self.final_norm, self.cfg.rms_eps)
+        return lm_head_apply(self.embedding, self.lm_head, x).float()
+
+
+def _positions(batch: int, seq: int, start, device):
+    p = torch.arange(seq, dtype=torch.int64, device=device)[None]
+    if isinstance(start, int):
+        return (p + start).expand(batch, seq)
+    return p + start.to(torch.int64)[:, None]
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens, cache_len: Optional[int] = None):
+    """Run the prompt (B, S) and build the decode cache, padded with zeros
+    out to ``cache_len`` positions.  Returns (last_logits (B, V), cache)."""
+    B, S = tokens.shape
+    cache_len = cache_len or S
+    positions = _positions(B, S, 0, tokens.device)
+    x = embed_apply(model.embedding, tokens, model.dtype)
+    cache = []
+    for blk in model.layers:
+        x, kv = blk.prefill(x, positions)
+        grown = {}
+        for name, t in kv.items():
+            full = torch.zeros((B, cache_len) + t.shape[2:], dtype=t.dtype,
+                               device=t.device)
+            full[:, :S] = t
+            grown[name] = full
+        cache.append(grown)
+    return model.head(x[:, -1:])[:, 0], cache
+
+
+@torch.no_grad()
+def extend_step(model: Transformer, tokens, cache, pos):
+    """tokens: (B, L) new tokens; pos: (B,) absolute index of tokens[:, 0].
+    Returns (logits (B, L, V) float32, cache updated in place)."""
+    B, L = tokens.shape
+    positions = _positions(B, L, pos, tokens.device)
+    x = embed_apply(model.embedding, tokens, model.dtype)
+    for blk, c in zip(model.layers, cache):
+        x = blk.extend(x, positions, c, pos)
+    return model.head(x), cache
+
+
+def decode_step(model: Transformer, token, cache, pos):
+    """token: (B,).  Returns (logits (B, V), cache)."""
+    logits, cache = extend_step(model, token[:, None], cache, pos)
+    return logits[:, 0], cache

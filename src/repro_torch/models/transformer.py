@@ -1,0 +1,51 @@
+"""The attention + SwiGLU block and the layer stack (mirrors
+``repro.models.transformer`` for dense GQA configs).  The reference scans
+period-stacked parameters with ``jax.lax.scan``; the port keeps one
+module per layer in an ``nn.ModuleList`` and loops in Python."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import MLP, frozen, rmsnorm
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.cfg = cfg
+        # norm weights stay float32: the reference reads them as float32
+        self.norm1 = frozen(d, dtype=torch.float32, device=device, fill=1.0)
+        self.attn = attn.Attention(cfg, dtype, device)
+        self.norm2 = frozen(d, dtype=torch.float32, device=device, fill=1.0)
+        self.mlp = MLP(d, cfg.d_ff, dtype, device)
+
+    def prefill(self, x, positions):
+        """Returns (x, {"k", "v"}) for the prompt."""
+        h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
+        a, kv = attn.attn_prefill(self.cfg, self.attn, h, positions)
+        return self._ffn(x + a), kv
+
+    def extend(self, x, positions, cache, pos):
+        h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
+        a, _ = attn.attn_extend(self.cfg, self.attn, h, positions, cache,
+                                pos)
+        return self._ffn(x + a)
+
+    def _ffn(self, x):
+        return x + self.mlp(rmsnorm(x, self.norm2, self.cfg.rms_eps))
+
+
+def check_supported(cfg: ModelConfig):
+    """The port runs dense GQA attention + MLP stacks so far."""
+    dense = (cfg.block_pattern == ("attn",) and cfg.ffn_pattern == ("mlp",)
+             and cfg.n_prefix_layers == 0 and cfg.n_encoder_layers == 0
+             and not cfg.is_mla and cfg.attention == "full"
+             and cfg.kv_cache_dtype == "compute" and cfg.frontend == "none")
+    if not dense:
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA attention+MLP configs are ported "
+            "so far")
