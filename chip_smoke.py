@@ -70,19 +70,35 @@ def cuda_ms(fn, reps=10, warm=2):
 
 
 def near(x, y, k=ULP_RULE):
+    """Elementwise: x within k float32 ulps of y."""
     import numpy as np
-    x = np.float32(x)
-    y = np.float32(y)
-    return abs(float(x) - float(y)) <= k * float(np.spacing(np.abs(y)))
+    x = np.asarray(x, np.float32).astype(np.float64)
+    y = np.asarray(y, np.float32)
+    return np.abs(x - y) <= k * np.spacing(np.abs(y)).astype(np.float64)
 
 
 # ----------------------------------------------------------------------
 # phase 2: kernels against their twins
 # ----------------------------------------------------------------------
+DROPPED_ATOL = 1e-6     # dropped mass: 1 - (a float32 sum of up to V terms)
+
+
 def compare_sqs(lp, beta2, it, ell, exact_k, label, beta2_twin=None):
     """Kernel vs twin on one input (K-SQS: each with its own top-K
-    threshold, as ops.sqs_topk chains them); returns (differing rows,
-    rows not excused by the boundary rule)."""
+    threshold, as ops.sqs_topk chains them).  Every output is held:
+    b, mask and all four stats [dropped, K, sum_b_raw, max_logit].
+
+    The kernel must be consistent with itself (sum b = ell, K = its mask
+    size, dropped = 1 - the twin's q summed over its mask) and its max
+    logit equal the twin's.  A row that differs from the twin is excused
+    only by the boundary rule: every index where the masks differ is a
+    boundary index (the twin's q within ULP_RULE ulps of the kernel's or
+    the twin's threshold, or l*q~ within ULP_RULE ulps of a half-integer);
+    every index where b alone differs is a boundary index or moved by
+    exactly 1 (the cascade of the +-1 correction); and the row holds a
+    boundary index that starts it (a differing mask or b entry, or a
+    rounding boundary inside the mask when sum_b_raw differs).  Returns
+    (differing rows, rows not excused)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ref, sqs_fused as k
@@ -95,33 +111,58 @@ def compare_sqs(lp, beta2, it, ell, exact_k, label, beta2_twin=None):
     torch.cuda.synchronize()
     kb, km, ks = kb.cpu().numpy(), km.cpu().numpy(), ks.cpu().numpy()
     rb, rm, rs = rb.cpu().numpy(), rm.cpu().numpy(), rs.cpu().numpy()
-    check((kb.sum(-1) == ell).all(), f"{label}: kernel sum b != ell "
-          f"{kb.sum(-1).tolist()}")
-    if exact_k:
-        check((ks[:, 1] == exact_k).all() and (rs[:, 1] == exact_k).all(),
-              f"{label}: K-SQS K differs "
-              f"{ks[:, 1].tolist()} vs {rs[:, 1].tolist()}")
     q = ref.softmax_padded(lp, it)
     qm = torch.where(torch.from_numpy(rm).bool().to(q.device), q, 0.0)
     lq = (ell * (qm / qm.sum(-1, keepdim=True))).cpu().numpy()
     q = q.cpu().numpy()
-    bad = 0
-    diff_rows = [r for r in range(kb.shape[0])
-                 if (kb[r] != rb[r]).any() or (km[r] != rm[r]).any()
-                 or ks[r, 1] != rs[r, 1]]
-    for r in diff_rows:
-        idx = np.nonzero((kb[r] != rb[r]) | (km[r] != rm[r]))[0]
-        thr = beta2_twin[r, 0].item()
-        why = [int(i) for i in idx
-               if near(q[r, i], thr)
-               or near(lq[r, i], np.floor(lq[r, i]) + 0.5)]
-        excused = bool(why)
-        print(f"    row {r} differs at {idx.size} entries "
-              f"(first {idx[:4].tolist()}); "
-              + (f"excused: boundary within {ULP_RULE} ulps at {why[:4]}"
-                 if excused else "NOT a boundary case"))
+    kmb, rmb = km.astype(bool), rm.astype(bool)
+    check((kb.sum(-1) == ell).all(), f"{label}: kernel sum b != ell "
+          f"{kb.sum(-1).tolist()}")
+    check((ks[:, 3] == rs[:, 3]).all(), f"{label}: max logit differs "
+          f"{ks[:, 3].tolist()} vs {rs[:, 3].tolist()}")
+    check((ks[:, 1] == kmb.sum(-1)).all(), f"{label}: kernel K "
+          f"{ks[:, 1].tolist()} != its mask size {kmb.sum(-1).tolist()}")
+    own = 1.0 - np.where(kmb, q.astype(np.float64), 0.0).sum(-1)
+    check((np.abs(ks[:, 0] - own) <= DROPPED_ATOL).all(),
+          f"{label}: kernel dropped {ks[:, 0].tolist()} != 1 - sum of q "
+          f"over its mask {own.tolist()}")
+    if exact_k:
+        check((ks[:, 1] == exact_k).all() and (rs[:, 1] == exact_k).all(),
+              f"{label}: K-SQS K differs "
+              f"{ks[:, 1].tolist()} vs {rs[:, 1].tolist()}")
+    bad = diff = 0
+    for r in range(kb.shape[0]):
+        d_mask = np.nonzero(kmb[r] != rmb[r])[0]
+        d_b = np.nonzero((kb[r] != rb[r]) & (kmb[r] == rmb[r]))[0]
+        d_sum = float(ks[r, 2] - rs[r, 2])
+        d_drop = float(abs(ks[r, 0] - rs[r, 0]))
+        if (d_mask.size == 0 and d_b.size == 0 and d_sum == 0
+                and ks[r, 1] == rs[r, 1] and d_drop <= DROPPED_ATOL):
+            continue
+        diff += 1
+        half = near(lq[r], np.floor(lq[r]) + 0.5)
+        bnd = (near(q[r], beta2_twin[r, 0].item())
+               | near(q[r], beta2[r, 0].item()) | half)
+        casc = d_b[~bnd[d_b]]
+        unexplained = int((~bnd[d_mask]).sum()
+                          + (np.abs(kb[r, casc] - rb[r, casc]) != 1).sum())
+        started = bool(bnd[d_mask].any() or bnd[d_b].any()
+                       or (d_sum != 0 and (half & rmb[r]).any()))
+        if d_mask.size == 0:
+            unexplained += int(ks[r, 1] != rs[r, 1])
+            unexplained += int(d_drop > DROPPED_ATOL)
+        excused = unexplained == 0 and started
+        print(f"    row {r}: mask differs at {d_mask.size} entries "
+              f"({int(bnd[d_mask].sum())} boundary), b at {d_b.size} more "
+              f"({int(bnd[d_b].sum())} boundary, {casc.size} cascade), "
+              f"sum_b_raw by {d_sum:+.0f}, dropped by {d_drop:.3g}; "
+              f"first {np.union1d(d_mask, d_b)[:4].tolist()}; "
+              f"{unexplained} not explained, "
+              + ("a" if started else "no") + " boundary index starts it; "
+              + ("excused by the boundary rule" if excused
+                 else "NOT a boundary case"))
         bad += not excused
-    return len(diff_rows), bad
+    return diff, bad
 
 
 def phase_kernels():
@@ -314,6 +355,10 @@ def phase_timing(engines, launches):
         B, Vp = lp.shape
         if method == "csqs":
             beta2 = torch.stack([edge.beta, edge.beta], -1).contiguous()
+            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
+                                 "sqs_fused at main-path input")
+            check(nb == 0, f"csqs main-path input: {nb} rows differ from "
+                  f"the twin outside the boundary rule")
             kb, km, ks = k.sqs_fused(lp, beta2, inv_temp=1.0, ell=100)
             rb, rm, rs = ref.sqs_fused_ref(lp, beta2, inv_temp=1.0, ell=100)
             err = float((kb - rb).abs().max().item())
@@ -328,6 +373,7 @@ def phase_timing(engines, launches):
             nops = B * Vp * (12 + (41 if corr else 0))
             print(f"  sqs_fused at main-path input (csqs, B={B}, Vp={Vp}, "
                   f"K={ks[:, 1].tolist()}, sum_b_raw={ks[:, 2].tolist()}): "
+                  f"{nd} rows differ from the twin, {nb} unexcused; "
                   f"kernel {t:.4f} ms, twin {tr:.4f} ms")
             out.append(("sqs_fused", t, tr, None, err, nbytes, nops))
         else:
@@ -336,6 +382,10 @@ def phase_timing(engines, launches):
             q = ref.softmax_padded(lp, it)
             tau_r = ref.topk_threshold_ref(q, 64)
             err = float((tau - tau_r).abs().max().item())
+            nd, nb = compare_sqs(lp, tau, it, 100, 64,
+                                 "sqs_topk at main-path input", tau_r)
+            check(nb == 0, f"ksqs main-path input: {nb} rows differ from "
+                  f"the twin outside the boundary rule")
             t = cuda_ms(lambda: k.topk_threshold(lp, 64, inv_temp=it))
             tr = cuda_ms(lambda: ref.topk_threshold_ref(
                 ref.softmax_padded(lp, it), 64))
@@ -343,7 +393,9 @@ def phase_timing(engines, launches):
             nbytes = B * Vp * 4 + B * 8
             nops = B * Vp * (4 + 40)      # softmax, 40 compares
             print(f"  topk_threshold at main-path input (ksqs, B={B}, "
-                  f"Vp={Vp}, K=64): kernel {t:.4f} ms, twin {tr:.4f} ms, "
+                  f"Vp={Vp}, K=64): tau differs from the twin by {err:.3g}, "
+                  f"sqs {nd} rows differ, {nb} unexcused; "
+                  f"kernel {t:.4f} ms, twin {tr:.4f} ms, "
                   f"torch.topk {tl:.4f} ms")
             out.append(("topk_threshold", t, tr, tl, err, nbytes, nops))
     rows = []

@@ -135,9 +135,10 @@ class EdgeDraftEngine:
         self.device = resolve_device(device)
 
     # -- SQS -----------------------------------------------------------
-    def _sparsify(self, q, beta, logits):
+    def _sparsify(self, logits, beta):
         m, V = self.m, self.V
         if m.use_kernels and m.name in ("ksqs", "csqs"):
+            # the kernels compute their own softmax
             from repro_torch.kernels import ops as kops
             if m.name == "ksqs":
                 r = kops.sqs_topk(logits, m.K, temperature=self.e.temperature,
@@ -146,7 +147,9 @@ class EdgeDraftEngine:
                 r = kops.sqs_threshold(logits, beta,
                                        temperature=self.e.temperature,
                                        ell=m.ell)
-        elif m.name == "ksqs":
+            return self._sqs_bits(r)
+        q = sqs_mod.softmax_temp(logits, self.e.temperature)
+        if m.name == "ksqs":
             r = sqs_mod.sparsify_topk(q, m.K, m.ell)
         elif m.name == "csqs":
             r = sqs_mod.sparsify_threshold(q, beta, m.ell)
@@ -156,6 +159,10 @@ class EdgeDraftEngine:
             r = sqs_mod.no_compression(q)
         else:
             raise ValueError(m.name)
+        return self._sqs_bits(r)
+
+    def _sqs_bits(self, r):
+        m, V = self.m, self.V
         if m.name == "ksqs":
             bits = torch.full_like(r.dropped, bits_mod.token_bits(
                 V, float(m.K), m.ell, adaptive=False))
@@ -182,8 +189,7 @@ class EdgeDraftEngine:
             keys, k1 = _split_rows(keys)
             logits, self.dcache = model_mod.decode_step(self.model, tok,
                                                         self.dcache, pos)
-            q = sqs_mod.softmax_temp(logits, self.e.temperature)
-            r, bits, gap_bits = self._sparsify(q, beta, logits)
+            r, bits, gap_bits = self._sparsify(logits, beta)
             nxt = prng.categorical(
                 k1, torch.log(torch.clamp(r.q_hat, min=1e-30)))
             if self.m.name == "csqs":
@@ -193,7 +199,7 @@ class EdgeDraftEngine:
                         gap_bits=gap_bits, dropped=r.dropped, K=r.K,
                         beta=beta)
             if self.e.collect_theory:
-                step["q"] = q
+                step["q"] = sqs_mod.softmax_temp(logits, self.e.temperature)
             steps.append(step)
             tok, pos = nxt, pos + 1
         return {name: torch.stack([s[name] for s in steps])

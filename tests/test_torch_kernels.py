@@ -130,6 +130,8 @@ def test_kernels_vs_twin_on_card(cuda_device, B, V):
              tref.sqs_fused_ref(lp, beta2, inv_temp=1.0, ell=100))]:
         assert (b.sum(-1) == 100).all()
         assert torch.equal(m, rm) and torch.equal(s[:, 1], rs[:, 1])
+        assert torch.equal(s[:, 2], rs[:, 2]) and torch.equal(s[:, 3], rs[:, 3])
+        assert (s[:, 0] - rs[:, 0]).abs().max() <= 1e-6
     tau = tk.topk_threshold(lp, 64, inv_temp=1.0)
     r = tops.sqs_topk(logits, 64)
     assert (r.K == 64).all() and (tau[:, 0] <= tau[:, 1]).all()
