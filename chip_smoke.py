@@ -3,16 +3,30 @@
     python3 chip_smoke.py        # needs one CUDA card
 
 Phases:
-  1. the card (nvidia-smi name and power limit) and the kernel build;
-  2. each Hopper kernel against its plain PyTorch twin on the card, over
-     the shapes of the reference's kernel tests plus the main path's
-     (4, 151936), with the differing rows counted and classified;
-  3. the port's main path through its user entry point
+  1. the card (nvidia-smi name and power limit) and the build of both
+     kernel libraries (one nvcc each, started together);
+  2. each Hopper kernel against its plain PyTorch twin on the card: the
+     SQS kernels over the shapes of the reference's kernel tests plus the
+     main path's (4, 151936), with the differing rows counted and
+     classified; the two flash-decode kernels over the reference's
+     sweeps in f32, bf16 and int8, paged against dense on gathered
+     pages, and the serving shape (nq 16, nkv 2, hd 128, bf16);
+  3. the fixed-batch main path through its user entry point
      (``EdgeCloudEngine.run``) at full ``qwen2.5-3b`` width with a
      ``qwen2.5-3b-draft2x`` edge model, bf16 random weights from a seed,
      for ksqs/csqs (codecs v1 and v2), qs and uncompressed, with the
      kernel launch counts of that run and output checks;
-  4. kernel, twin and library timings at the main path's inputs.
+  4. SQS kernel, twin and library timings at the main path's inputs;
+  5. continuous-batching serving (``ServeSession.run_trace``) of one
+     Poisson trace at full width: dense lockstep, paged lockstep, paged
+     pipelined with speculation, and int8 paged against int8 dense, with
+     per-request streams equal across them, the launch counts of that
+     path and the measured per-round t_slm / t_llm;
+  6. the flash-decode kernels on the page pools that serving wrote (4
+     slots admitted through the slot API with prompts of 17 to 4001
+     tokens, two paged rounds): against their twins and each other, in
+     bf16 and int8, with their launch counts, timings, the
+     ``scaled_dot_product_attention`` yardstick and the bytes bound.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last is the contract line {"ok": true, "device": {...}}.  Any
@@ -37,9 +51,18 @@ ULP_RULE = 8                       # boundary tolerance, float32 ulps
 # the main path's shape: batch, prompt length, drafts per round, and the
 # rounds per K-SQS/C-SQS run (one round each for qs and uncompressed)
 BATCH, PROMPT_LEN, L_MAX, ROUNDS = 4, 16, 8, 3
+# flash-decode tolerances of the reference's kernel tests
+# (tests/test_kernels.py): f32 and int8 against its twin, a bf16 cache,
+# int8 against the float oracle
+ATOL_F32, ATOL_BF16, ATOL_INT8_ORACLE = 2e-5, 5e-3, 0.02
+# serving: slots, page size, and the phase-6 prompt lengths / capacity
+SLOTS, PAGE = 4, 16
+LONG_PROMPTS, LONG_CACHE = (17, 1025, 2561, 4001), 4112
 TPU_SOURCES = {
     "sqs_fused": "src/repro/kernels/sqs_fused.py:118",
     "topk_threshold": "src/repro/kernels/sqs_fused.py:171",
+    "flash_gqa_decode": "src/repro/kernels/decode_attention.py:98",
+    "paged_flash_gqa_decode": "src/repro/kernels/decode_attention.py:157",
 }
 
 
@@ -245,6 +268,116 @@ def phase_kernels():
           f"the {ULP_RULE}-ulp boundary rule")
 
 
+def decode_case(label, run, twins):
+    """Run kernel calls ``run`` -> dict of outputs, hold each against
+    its twin with its tolerance; ``twins``: name -> (twin fn, atol).
+    Returns the largest error (checked) and prints the timings."""
+    import torch
+    outs = run()
+    torch.cuda.synchronize()
+    parts = []
+    for name, (twin, atol) in twins.items():
+        err = float((outs[name] - twin()).abs().max().item())
+        check(err <= atol, f"{label}: {name} off its twin by {err:.3g} > "
+              f"{atol}")
+        parts.append(f"{name} {err:.3g} (<= {atol})")
+    return outs, "; ".join(parts)
+
+
+def phase_decode_kernels():
+    """The flash-decode kernels against their twins: the sweeps of
+    tests/test_kernels.py:116-198 in f32, bf16 and int8, paged against
+    dense on gathered pages, and the serving shape."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da, ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    print("phase 2: flash-decode kernels vs plain twins on the card")
+    dense_cases = [(2, 1024, 2, 4, 64, "f32"), (1, 512, 1, 8, 128, "f32"),
+                   (3, 2000, 4, 1, 128, "f32"), (2, 384, 8, 2, 64, "f32"),
+                   (2, 640, 2, 4, 64, "bf16"), (4, LONG_CACHE, 2, 8, 128,
+                                                "serving bf16")]
+    for B, S, nkv, qpk, hd, kind in dense_cases:
+        kdt = torch.bfloat16 if "bf16" in kind else torch.float32
+        qdt = torch.bfloat16 if kind == "serving bf16" else torch.float32
+        q = randn(B, nkv * qpk, hd, dtype=qdt)
+        kc, vc = randn(B, S, nkv, hd, dtype=kdt), randn(B, S, nkv, hd,
+                                                        dtype=kdt)
+        pos = torch.tensor([min(S - 1, S // 2 + 7 * b) for b in range(B)],
+                           dtype=torch.int32, device=dev)
+        if kind == "bf16":
+            pos[0] = S - 1
+        atol = ATOL_F32 if kdt == torch.float32 else ATOL_BF16
+        k8, ks = da.quantize_kv(kc)
+        v8, vs = da.quantize_kv(vc)
+        label = f"gqa_decode B={B} S={S} nkv={nkv} qpk={qpk} hd={hd} {kind}"
+        _, errs = decode_case(label, lambda: {
+            "cache": ops.gqa_decode(q, kc, vc, pos),
+            "int8": ops.gqa_decode(q, k8, v8, pos, ks, vs)}, {
+            "cache": (lambda: ref.gqa_decode_ref(q, kc, vc, pos), atol),
+            "int8": (lambda: ref.gqa_decode_ref(q, k8, v8, pos, ks, vs),
+                     ATOL_F32)})
+        o8 = ops.gqa_decode(q, k8, v8, pos, ks, vs)
+        oracle = float((o8 - ref.gqa_decode_ref(q, kc, vc, pos)).abs().max())
+        check(oracle < ATOL_INT8_ORACLE, f"{label}: int8 off the float "
+              f"oracle by {oracle:.3g}")
+        tk = cuda_ms(lambda: ops.gqa_decode(q, kc, vc, pos), reps=5)
+        tr = cuda_ms(lambda: ref.gqa_decode_ref(q, kc, vc, pos), reps=5)
+        print(f"  {label}: max err {errs}; int8 vs float oracle "
+              f"{oracle:.3g} (< {ATOL_INT8_ORACLE}); kernel {tk:.4f} ms, "
+              f"twin {tr:.4f} ms")
+    paged_cases = [(2, 4, 64, 16, 8, 20), (1, 8, 128, 32, 4, 6),
+                   (4, 1, 64, 8, 16, 40), (2, 8, 128, PAGE, 64, 200)]
+    rng = np.random.default_rng(7)
+    for nkv, qpk, hd, ps, maxp, n_pages in paged_cases:
+        B, P = 3, n_pages + 1
+        serving = (nkv, qpk, hd) == (2, 8, 128)
+        dt = torch.bfloat16 if serving else torch.float32
+        q = randn(B, nkv * qpk, hd, dtype=dt)
+        pk, pv = randn(P, ps, nkv, hd, dtype=dt), randn(P, ps, nkv, hd,
+                                                         dtype=dt)
+        perm = rng.permutation(n_pages)
+        pt_np = np.full((B, maxp), n_pages, np.int32)
+        used, pos_l = 0, []
+        for b in range(B):
+            npg = int(rng.integers(1, min(maxp, n_pages - used - (B - 1 - b))
+                                   + 1))
+            pt_np[b, :npg] = perm[used:used + npg]
+            used += npg
+            pos_l.append(npg * ps - int(rng.integers(1, ps)))
+        pt = torch.from_numpy(pt_np).to(dev)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        gk = pk[pt.long()].reshape(B, maxp * ps, nkv, hd).contiguous()
+        gv = pv[pt.long()].reshape(B, maxp * ps, nkv, hd).contiguous()
+        k8, ks = da.quantize_kv(pk)
+        v8, vs = da.quantize_kv(pv)
+        atol = ATOL_BF16 if serving else ATOL_F32
+        label = (f"paged_gqa_decode nkv={nkv} qpk={qpk} hd={hd} ps={ps} "
+                 f"maxp={maxp} P={P} {'serving bf16' if serving else 'f32'}")
+        outs, errs = decode_case(label, lambda: {
+            "pool": ops.paged_gqa_decode(q, pk, pv, pt, pos),
+            "int8": ops.paged_gqa_decode(q, k8, v8, pt, pos, ks, vs)}, {
+            "pool": (lambda: ref.paged_gqa_decode_ref(q, pk, pv, pt, pos),
+                     atol),
+            "int8": (lambda: ref.paged_gqa_decode_ref(q, k8, v8, pt, pos,
+                                                      ks, vs), ATOL_F32)})
+        dense = ops.gqa_decode(q, gk, gv, pos)
+        e_pd = float((outs["pool"] - dense).abs().max())
+        check(e_pd <= ATOL_F32, f"{label}: paged vs dense kernel {e_pd:.3g}")
+        tk = cuda_ms(lambda: ops.paged_gqa_decode(q, pk, pv, pt, pos),
+                     reps=5)
+        tr = cuda_ms(lambda: ref.paged_gqa_decode_ref(q, pk, pv, pt, pos),
+                     reps=5)
+        print(f"  {label}: max err {errs}; paged vs dense kernel "
+              f"{e_pd:.3g} (<= {ATOL_F32}); kernel {tk:.4f} ms, twin "
+              f"{tr:.4f} ms")
+
+
 # ----------------------------------------------------------------------
 # phase 3: the main path at full width
 # ----------------------------------------------------------------------
@@ -413,6 +546,291 @@ def phase_timing(engines, launches):
     return rows
 
 
+# ----------------------------------------------------------------------
+# phase 5: continuous-batching serving at full width
+# ----------------------------------------------------------------------
+def record_times(eng, log):
+    """Record the measured draft and verify wall-clock of every engine
+    call (the serving clock itself runs on fixed t_slm / t_llm)."""
+    run_draft, verify = eng.edge._run_draft, eng.cloud.verify
+
+    def timed_draft(*a):
+        ys, keys, t = run_draft(*a)
+        log["t_slm"].append(t)
+        return ys, keys, t
+
+    def timed_verify(*a, **kw):
+        vb = verify(*a, **kw)
+        log["t_llm"].append(vb.t_llm)
+        return vb
+    eng.edge._run_draft = timed_draft
+    eng.cloud.verify = timed_verify
+
+
+def serve_run(label, dc, dp, tc, tp, dev, trace_cfg, **serve_kw):
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig)
+    from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
+                                   poisson_trace)
+    eng = EdgeCloudEngine(dc, dp, tc, tp, MethodConfig("csqs"),
+                          EngineConfig(L_max=L_MAX), seed=0, device=dev)
+    log = {"t_slm": [], "t_llm": []}
+    record_times(eng, log)
+    t0 = time.perf_counter()
+    cfg = dict(max_batch=SLOTS, cache_len=48, t_slm_s=0.05, t_llm_s=0.03)
+    cfg.update(serve_kw)
+    rep = ServeSession(eng, ServeConfig(**cfg)).run_trace(
+        poisson_trace(TraceConfig(**trace_cfg)))
+    wall = time.perf_counter() - t0
+    check(rep.n_finished == rep.n_requests == trace_cfg["n_requests"],
+          f"{label}: {rep.n_finished} of {rep.n_requests} finished")
+    streams = {r.rid: tuple(r.tokens) for r in rep.requests}
+    for rid, toks in streams.items():
+        check(0 < len(toks) and all(0 <= t < tc.vocab for t in toks),
+              f"{label}: request {rid} stream {toks}")
+    if rep.page_size:
+        check(0 < rep.peak_pages_in_use < rep.n_pages,
+              f"{label}: peak pages {rep.peak_pages_in_use} of "
+              f"{rep.n_pages}")
+    summ = rep.summary()
+    print(f"  {label}: {wall:.1f} s wall; " + json.dumps(
+        {k: summ[k] for k in ("n_requests", "n_finished", "total_tokens",
+                              "n_rounds", "makespan_s", "latency_p50_s",
+                              "latency_p99_s", "n_preempted", "peak_active",
+                              "n_pages", "peak_pages_in_use", "n_spec_hits",
+                              "n_spec_misses", "uplink_bits_total")}))
+    print("    measured t_slm ms " + " ".join(
+        f"{t * 1e3:.1f}" for t in log["t_slm"]))
+    print("    measured t_llm ms " + " ".join(
+        f"{t * 1e3:.1f}" for t in log["t_llm"]))
+    return streams
+
+
+def phase_serving(dev, tc, dc, tp, dp):
+    import dataclasses
+    import torch
+    from repro_torch.bridge import init_params
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import sqs_fused as k
+    print(f"phase 5: continuous-batching serving, {tc.name} <- {dc.name}, "
+          f"bf16, csqs, L_max {L_MAX}, {SLOTS} slots, fixed clock t_slm "
+          f"50 ms / t_llm 30 ms")
+    trace = dict(n_requests=6, rate_rps=4.0, prompt_len=PROMPT_LEN,
+                 min_new_tokens=8, max_new_tokens=12, vocab=tc.vocab, seed=5)
+    k.reset_launches()
+    da.reset_launches()
+    dense = serve_run("dense lockstep", dc, dp, tc, tp, dev, trace)
+    paged = serve_run("paged(16) lockstep", dc, dp, tc, tp, dev, trace,
+                      page_size=PAGE)
+    pipe = serve_run("paged(16) pipelined + speculation", dc, dp, tc, tp,
+                     dev, trace, page_size=PAGE, pipeline="pipelined")
+    launches = {**k.LAUNCHES, **da.LAUNCHES}
+    print(f"  launches over the three runs: {launches}")
+    check(launches["sqs_fused"] > 0, "serving never launched sqs_fused")
+    check(dense == paged, "paged lockstep streams differ from dense")
+    check(dense == pipe, "pipelined streams differ from lockstep")
+    print(f"  streams equal across dense lockstep, paged lockstep and paged "
+          f"pipelined: {len(dense)} requests, "
+          f"{sum(map(len, dense.values()))} tokens")
+    tc8 = dataclasses.replace(tc, kv_cache_dtype="int8")
+    dc8 = dataclasses.replace(dc, kv_cache_dtype="int8")
+    tp8 = init_params(tc8, torch.Generator(device=dev).manual_seed(1),
+                      device=dev)
+    dp8 = init_params(dc8, torch.Generator(device=dev).manual_seed(2),
+                      device=dev)
+    short = dict(trace, n_requests=2, min_new_tokens=6, max_new_tokens=8)
+    d8 = serve_run("int8 dense lockstep", dc8, dp8, tc8, tp8, dev, short)
+    p8 = serve_run("int8 paged(16) lockstep", dc8, dp8, tc8, tp8, dev, short,
+                   page_size=PAGE)
+    check(d8 == p8, "int8 paged streams differ from int8 dense")
+    print(f"  int8 paged streams equal int8 dense: {len(d8)} requests")
+    del tp8, dp8
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 6: the flash-decode kernels on the served page pools
+# ----------------------------------------------------------------------
+def sdpa_call(q, gk, gv, pos):
+    """The yardstick: one torch.nn.functional.scaled_dot_product_attention
+    call over the gathered bf16 cache, positions <= pos; GQA by
+    ``enable_gqa`` where the installed torch has it, else by K/V heads
+    repeated (outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+    B, nq, hd = q.shape
+    S, nkv = gk.shape[1], gk.shape[2]
+    qs = q[:, :, None, :]
+    ks, vs = gk.permute(0, 2, 1, 3), gv.permute(0, 2, 1, 3)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return (lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)), "enable_gqa=True"
+    ks = ks.repeat_interleave(nq // nkv, 1)
+    vs = vs.repeat_interleave(nq // nkv, 1)
+    return (lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask)), "K/V heads repeated"
+
+
+def decode_bound(B, nq, nkv, hd, pos, kv_bytes, paged_cols=0, scales=False):
+    """Least time for one decode call: each input read once (K and V at
+    positions <= pos, their scales, q, pos, the page table) and the f32
+    output written once, over device memory; against 4 flops per
+    position, query head and hd (two products, f32 outside the tensor
+    cores).  Returns (ms, bound_by)."""
+    n = int(sum(int(p) + 1 for p in pos))
+    nbytes = (2 * n * nkv * hd * kv_bytes + (2 * n * nkv * 4 if scales
+                                             else 0)
+              + B * nq * hd * 2 + B * 4 + B * paged_cols * 4
+              + B * nq * hd * 4)
+    nops = 4 * n * nq * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_served_pools(dev, tc, dc, tp, dp):
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig)
+    from repro_torch.kernels import decode_attention as da, ops, ref
+    from repro_torch.models.attention import page_gather
+    print(f"phase 6: flash-decode kernels on the served page pools "
+          f"({SLOTS} slots, prompts {LONG_PROMPTS}, cache {LONG_CACHE}, "
+          f"page {PAGE}, two paged lockstep rounds)")
+    eng = EdgeCloudEngine(dc, dp, tc, tp, MethodConfig("csqs"),
+                          EngineConfig(L_max=L_MAX), seed=0, device=dev)
+    eng.init_slots(SLOTS, LONG_CACHE, page_size=PAGE)
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    for slot, n in enumerate(LONG_PROMPTS):
+        eng.admit_slot(slot, rng.integers(0, tc.vocab, n), seed=100 + slot)
+    for _ in range(2):
+        eng.run_round()
+    torch.cuda.synchronize()
+    print(f"  admitted and served two rounds in "
+          f"{time.perf_counter() - t0:.1f} s; pages in use "
+          f"{eng.alloc.pages_in_use} of {eng.alloc.n_pages}")
+    # the last committed position of each slot: the engines' pos - 1
+    pos = (eng.cloud.pos - 1).to(torch.int32)
+    check(torch.equal(eng.cloud.pos, eng.edge.pos), "edge/cloud pos differ")
+    cases = []
+    for name, cache, cfg in (("target", eng.cloud.tcache, tc),
+                             ("draft", eng.edge.dcache, dc)):
+        n = len(cache)
+        for layer in sorted({0, n // 2, n - 1}):
+            c = cache[layer]
+            pt = c["page_table"].to(torch.int32)
+            P = c["k"].shape[0]
+            check(bool(((pt >= 0) & (pt < P)).all()),
+                  f"{name} layer {layer}: page table entry outside the pool")
+            check(bool((pt == P - 1).any()), "no trash entries in the table")
+            g = torch.Generator(device=dev).manual_seed(layer)
+            q = torch.randn((SLOTS, cfg.n_heads, cfg.head_dim), generator=g,
+                            device=dev).to(torch.bfloat16)
+            k8, ks = da.quantize_kv(c["k"])
+            v8, vs = da.quantize_kv(c["v"])
+            cases.append(dict(
+                label=f"{name} layer {layer}", q=q, k=c["k"], v=c["v"],
+                pt=pt, gk=page_gather(c["k"], pt.long()).contiguous(),
+                gv=page_gather(c["v"], pt.long()).contiguous(), k8=k8, ks=ks,
+                v8=v8, vs=vs, gk8=page_gather(k8, pt.long()).contiguous(),
+                gv8=page_gather(v8, pt.long()).contiguous(),
+                gks=page_gather(ks, pt.long()).contiguous(),
+                gvs=page_gather(vs, pt.long()).contiguous()))
+    # the path: one paged and one dense decode per pool and type
+    da.reset_launches()
+    for c in cases:
+        c["paged"] = ops.paged_gqa_decode(c["q"], c["k"], c["v"], c["pt"],
+                                          pos)
+        c["dense"] = ops.gqa_decode(c["q"], c["gk"], c["gv"], pos)
+        c["paged8"] = ops.paged_gqa_decode(c["q"], c["k8"], c["v8"], c["pt"],
+                                           pos, c["ks"], c["vs"])
+        c["dense8"] = ops.gqa_decode(c["q"], c["gk8"], c["gv8"], pos,
+                                     c["gks"], c["gvs"])
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    print(f"  launches: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a decode kernel never ran on the served pools: {launches}")
+    err = {"flash_gqa_decode": 0.0, "paged_flash_gqa_decode": 0.0}
+    for c in cases:
+        twin = ref.paged_gqa_decode_ref(c["q"], c["k"], c["v"], c["pt"], pos)
+        twin8 = ref.paged_gqa_decode_ref(c["q"], c["k8"], c["v8"], c["pt"],
+                                         pos, c["ks"], c["vs"])
+        e = {"paged": float((c["paged"] - twin).abs().max()),
+             "dense": float((c["dense"] - twin).abs().max()),
+             "paged vs dense": float((c["paged"] - c["dense"]).abs().max()),
+             "paged8": float((c["paged8"] - twin8).abs().max()),
+             "dense8": float((c["dense8"] - twin8).abs().max()),
+             "paged8 vs dense8": float((c["paged8"] - c["dense8"]).abs()
+                                       .max()),
+             "paged8 vs float": float((c["paged8"] - twin).abs().max())}
+        tol = {"paged": ATOL_BF16, "dense": ATOL_BF16,
+               "paged vs dense": ATOL_F32, "paged8": ATOL_F32,
+               "dense8": ATOL_F32, "paged8 vs dense8": ATOL_F32}
+        for key, val in tol.items():
+            check(e[key] <= val, f"{c['label']}: {key} error {e[key]:.3g} "
+                  f"> {val}")
+        err["flash_gqa_decode"] = max(err["flash_gqa_decode"], e["dense"],
+                                      e["dense8"])
+        err["paged_flash_gqa_decode"] = max(err["paged_flash_gqa_decode"],
+                                            e["paged"], e["paged8"])
+        print(f"  {c['label']} (nq {c['q'].shape[1]}): " + ", ".join(
+            f"{key} {e[key]:.3g} (<= {val})" for key, val in tol.items())
+            + f"; int8 quantization: paged8 vs the bf16 twin "
+            f"{e['paged8 vs float']:.3g} (information)")
+    # timings at the target's last layer, bf16 and int8
+    c = [c for c in cases if c["label"].startswith("target")][-1]
+    B, nq, hd = c["q"].shape
+    nkv, maxp = c["k"].shape[2], c["pt"].shape[1]
+    q, pt = c["q"], c["pt"]
+    lib_fn, lib_how = sdpa_call(q, c["gk"], c["gv"], pos)
+    lib_out = lib_fn()[:, :, 0].float()
+    e_lib = float((lib_out - c["paged"]).abs().max())
+    t = {
+        "paged": cuda_ms(lambda: ops.paged_gqa_decode(q, c["k"], c["v"], pt,
+                                                      pos)),
+        "dense": cuda_ms(lambda: ops.gqa_decode(q, c["gk"], c["gv"], pos)),
+        "paged_twin": cuda_ms(lambda: ref.paged_gqa_decode_ref(
+            q, c["k"], c["v"], pt, pos)),
+        "dense_twin": cuda_ms(lambda: ref.gqa_decode_ref(q, c["gk"], c["gv"],
+                                                         pos)),
+        "paged8": cuda_ms(lambda: ops.paged_gqa_decode(
+            q, c["k8"], c["v8"], pt, pos, c["ks"], c["vs"])),
+        "dense8": cuda_ms(lambda: ops.gqa_decode(
+            q, c["gk8"], c["gv8"], pos, c["gks"], c["gvs"])),
+        "library": cuda_ms(lib_fn),
+    }
+    b_paged = decode_bound(B, nq, nkv, hd, pos.tolist(), 2, paged_cols=maxp)
+    b_dense = decode_bound(B, nq, nkv, hd, pos.tolist(), 2)
+    b_paged8 = decode_bound(B, nq, nkv, hd, pos.tolist(), 1, paged_cols=maxp,
+                            scales=True)
+    print(f"  timings, {c['label']} (B {B}, nq {nq}, nkv {nkv}, hd {hd}, pos "
+          f"{pos.tolist()}, bf16 q and cache): "
+          + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
+          + f"; library = scaled_dot_product_attention over the gathered "
+          f"bf16 cache with the pos mask ({lib_how}), off the paged kernel "
+          f"by {e_lib:.3g}; bound paged {b_paged[0]:.5f} ms, dense "
+          f"{b_dense[0]:.5f} ms, paged int8 {b_paged8[0]:.5f} ms (bytes "
+          f"over {HBM_BYTES_PER_S / 1e12} TB/s)")
+    rows = []
+    for name, key, bound in (("flash_gqa_decode", "dense", b_dense),
+                             ("paged_flash_gqa_decode", "paged", b_paged)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": TPU_SOURCES[name], "launches": launches[name],
+            "max_abs_err": err[name], "ms": t[key],
+            "plain_ms": t[key + "_twin"], "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": t["library"]})
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -424,19 +842,32 @@ def main():
     print(smi[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import sqs_fused as k
     t0 = time.perf_counter()
-    lib = k.build(verbose=True)
-    print(f"phase 1: built {os.path.relpath(lib, HERE)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(verbose=True), (k, da)))
+    print("phase 1: built " + ", ".join(os.path.relpath(lib, HERE)
+                                       for lib in libs)
+          + f" in {time.perf_counter() - t0:.1f} s")
     phase_kernels()
+    phase_decode_kernels()
     from repro_torch import configs
+    dev = torch.device("cuda")
     tc = configs.get_config("qwen2.5-3b")
-    engines, launches = phase_main_path(torch.device("cuda"), tc,
-                                        configs.draft_variant(tc, 2))
+    dc = configs.draft_variant(tc, 2)
+    engines, launches = phase_main_path(dev, tc, dc)
     print("phase 4: timings at the main path's inputs")
     rows = phase_timing(engines, launches)
     check(all(r["launches"] > 0 for r in rows), "a kernel never ran")
+    eng = engines["csqs"]
+    tp, dp = eng.cloud.model, eng.edge.model
+    del engines, eng
+    serve_launches = phase_serving(dev, tc, dc, tp, dp)
+    for r in rows:
+        r["launches"] += serve_launches[r["name"]]
+    rows += phase_served_pools(dev, tc, dc, tp, dp)
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

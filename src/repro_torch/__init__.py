@@ -2,9 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package imports nothing
 of it (nor of JAX) and mirrors its module names.  Every entry point takes
-an explicit ``device`` ("cuda" by default); on a CUDA device the two SQS
-edge kernels run as hand-written Hopper kernels
-(``repro_torch.kernels``)."""
+an explicit ``device`` ("cuda" by default); on a CUDA device the SQS edge
+kernels and the flash-decode attention kernels run as hand-written Hopper
+kernels (``repro_torch.kernels``)."""
 import torch
 
 

@@ -1,5 +1,5 @@
 """Disaggregated edge–cloud SQS speculative decoding engine (the paper's
-Algorithm 1), mirroring ``repro.core.engine`` for the fixed-batch path.
+Algorithm 1), mirroring ``repro.core.engine``.
 
 Two actors talk only through ``core.wire`` bytes:
 
@@ -10,12 +10,22 @@ Two actors talk only through ``core.wire`` bytes:
   ``CloudVerifyEngine`` — payload unpacking, LLM parallel verify, the
       Algorithm-1 β backtrack from the wire trajectory, verdict packing.
 
-``EdgeCloudEngine`` moves the packed payloads between them in lockstep
-(``prefill`` / ``run_round`` / ``run``).  Both actors keep the reference's
-replay registers — the inputs of every row's last committed step — and
-feed them to rows outside a call's commit mask, so those rows re-execute
-their previous step bit for bit; the serving slice (slot API, paged KV,
-event loop) builds on that.
+``EdgeEngineBase`` holds every token-affecting EDGE step the serving
+loops need: the slot lifecycle (``init_slots`` / ``admit_slot`` /
+``release_slot``, with the paged pool's allocator mirrored on both
+sides), per-slot drafting, speculative continuation and verdict
+application.  ``EdgeCloudEngine`` adds the in-process cloud actor
+through three hooks (``_init_peer_slots``, ``_admit_peer``,
+``_push_tables``), the per-slot ``verify_slots`` and the lockstep
+``prefill`` / ``run_round`` / ``run``.
+
+Both actors keep the reference's replay registers — the inputs of every
+row's last committed step — and feed them to rows outside a call's
+commit mask, so those rows re-execute their previous step bit for bit:
+a request's stream does not depend on which requests share the batch or
+on how calls interleave in time.  State tensors are replaced, never
+written in place (registers alias them); only the KV caches are written
+in place.
 
 Randomness comes only from per-row threefry keys (``repro_torch.prng``),
 which give jax's bits: the token streams equal the reference's.
@@ -37,7 +47,9 @@ from repro_torch.core import conformal
 from repro_torch.core import sqs as sqs_mod
 from repro_torch.core import verify as verify_mod
 from repro_torch.core import wire as wire_mod
+from repro_torch.core.pages import PageAllocator
 from repro_torch.models import model as model_mod
+from repro_torch.models.attention import PagedSpec, sanitize_page_table
 
 SEQ_BLOCKS = ("mamba", "mlstm", "slstm")
 
@@ -68,12 +80,12 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def row_key(seed: int, row: int = 0, device="cpu"):
+def row_key(seed: int, row: int = 0, device="cuda"):
     """Per-row PRNG root: fold the row index into the stream seed."""
     return prng.fold_in(prng.PRNGKey(seed, device), row)
 
 
-def cloud_row_key(seed: int, row: int = 0, device="cpu"):
+def cloud_row_key(seed: int, row: int = 0, device="cuda"):
     """The cloud actor's independent per-row PRNG root."""
     return prng.fold_in(row_key(seed, row, device), 0x0C10)
 
@@ -84,10 +96,55 @@ def _split_rows(keys, num: int = 2):
     return tuple(kk[:, i] for i in range(num))
 
 
+def _set(t, slot: int, value):
+    """``t`` with row ``slot`` set to ``value``, as a new tensor (state
+    tensors alias the replay registers; never write them in place)."""
+    t = t.clone()
+    t[slot] = value
+    return t
+
+
 def _check_dense(cfg: ModelConfig):
     if any(b in SEQ_BLOCKS for b in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: sequential-state (SSM) models are not ported yet")
+
+
+# ======================================================================
+# Host-side round records (what crosses between serving-loop events)
+# ======================================================================
+@dataclasses.dataclass
+class PendingRound:
+    """Edge-side record of one in-flight SD round for one slot: enough
+    to apply the verdict (emit tokens) and to seed the optimistic
+    continuation.  ``drafts`` has L_max+1 entries — index n_live is the
+    edge's own continuation sample at the bonus position (the
+    speculation guess)."""
+    slot: int
+    drafts: np.ndarray            # (L_max+1,) int
+    betas: np.ndarray             # (L_max+1,) f32 trajectory
+    n_live: int                   # L^t — drafts actually transmitted
+    packed: bytes                 # the DraftPayload on the wire
+    wire_bits: float              # len(packed) * 8
+    t_slm: float                  # measured draft wall-clock
+
+
+@dataclasses.dataclass
+class SpecDraft:
+    """An uncommitted speculative draft of round t+1 (optimistic
+    full-accept continuation).  Committed only when the round-t verdict
+    confirms the premise; otherwise dropped — its cache writes sit beyond
+    the committed position and are masked/overwritten."""
+    slot: int
+    in_x: int                     # premise: bonus token guess
+    in_pos: int                   # premise: pos after full accept
+    in_beta: float                # premise: β after full accept
+    base_key: torch.Tensor        # (2,) key consumed (replay register)
+    new_key: torch.Tensor         # (2,) key chain advance on commit
+    round: PendingRound           # the speculative round's record
+    # calibrated-budget EMA advance, applied only on commit (so a
+    # mis-speculation leaves the scale exactly where lockstep has it)
+    scale_next: Dict[int, float] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -221,6 +278,13 @@ class EdgeDraftEngine:
         self.slot_codec = [self.fmt.codec] * B
         self.coded_scale = np.ones((B,), np.float64)
 
+    def init_slots(self, n_slots: int, cache_len: int,
+                   spec: Optional[PagedSpec]):
+        self._alloc_state(n_slots)
+        self.cache_len = cache_len
+        self.dcache = model_mod.init_cache(self.model, n_slots, cache_len,
+                                           paged=spec)
+
     def prefill_batch(self, prompts, cache_len: int):
         B, S0 = prompts.shape
         self._alloc_state(B)
@@ -231,6 +295,30 @@ class EdgeDraftEngine:
         self.pos = torch.full((B,), S0 - 1, dtype=torch.int64,
                               device=self.device)
         self.rep_x, self.rep_pos = self.x_last, self.pos
+
+    def admit(self, slot: int, prompt, pt_row, seed: int,
+              wire_codec: Optional[str] = None):
+        """Prefill ``prompt`` (1-D int64 on the device) into ``slot``."""
+        S0 = int(prompt.shape[0])
+        _, cache1 = model_mod.prefill(self.model, prompt[None, :-1],
+                                      cache_len=self.cache_len)
+        model_mod.write_prefill_to_slot(self.dcache, cache1, slot, pt_row,
+                                        S0 - 1)
+        key = row_key(seed, 0, self.device)
+        self.x_last = _set(self.x_last, slot, prompt[-1])
+        self.pos = _set(self.pos, slot, S0 - 1)
+        self.beta = conformal.admit_rows(
+            self.beta, torch.arange(self.B) == slot, self.m.beta0)
+        self.keys = _set(self.keys, slot, key)
+        self.rep_x = _set(self.rep_x, slot, prompt[-1])
+        self.rep_pos = _set(self.rep_pos, slot, S0 - 1)
+        self.rep_beta = _set(self.rep_beta, slot, self.m.beta0)
+        self.rep_key = _set(self.rep_key, slot, key)
+        self.slot_codec[slot] = wire_codec or self.fmt.codec
+        self.coded_scale[slot] = 1.0
+
+    def set_tables(self, pt):
+        model_mod.set_page_tables(self.dcache, pt)
 
     # -- drafting ------------------------------------------------------
     def _run_draft(self, x_in, pos_in, beta_in, key_in):
@@ -312,7 +400,71 @@ class EdgeDraftEngine:
         self.commit_scales(batch.scale_next)
         return batch
 
+    def pending_round(self, batch: DraftBatch, slot: int) -> PendingRound:
+        return PendingRound(slot=slot,
+                            drafts=batch.drafts[:, slot].copy(),
+                            betas=batch.betas[:, slot].copy(),
+                            n_live=int(batch.n_live[slot]),
+                            packed=batch.packed[slot],
+                            wire_bits=wire_mod.packed_bits(
+                                batch.packed[slot]),
+                            t_slm=batch.t_slm)
+
+    def draft_speculative(self, slot: int, x_guess: int, pos_next: int,
+                          beta_next: float) -> SpecDraft:
+        """Optimistic continuation: draft round t+1 under the premise
+        that every live round-t draft is accepted and the bonus token
+        equals the edge's own continuation sample.  Commits NOTHING —
+        the key chain advance is stored in the record and applied only
+        by ``commit_speculative`` when the verdict confirms the
+        premise.  (Cache writes land beyond the committed position and
+        are masked / overwritten if the premise fails.)"""
+        onehot = np.zeros((self.B,), bool)
+        onehot[slot] = True
+        dev = self.device
+        mj = torch.as_tensor(onehot, device=dev)
+        x_in = torch.where(mj, torch.tensor(int(x_guess), device=dev),
+                           self.rep_x)
+        pos_in = torch.where(mj, torch.tensor(int(pos_next), device=dev),
+                             self.rep_pos)
+        beta_in = torch.where(mj, torch.tensor(float(beta_next),
+                                               dtype=torch.float32,
+                                               device=dev), self.rep_beta)
+        key_in = torch.where(mj[:, None], self.keys, self.rep_key)
+        base_key = self.keys[slot].clone()
+        ys, new_keys, t_slm = self._run_draft(x_in, pos_in, beta_in, key_in)
+        batch = self._build_batch(ys, onehot, t_slm)
+        return SpecDraft(slot=slot, in_x=int(x_guess), in_pos=int(pos_next),
+                         in_beta=float(beta_next), base_key=base_key,
+                         new_key=new_keys[slot].clone(),
+                         round=self.pending_round(batch, slot),
+                         scale_next=batch.scale_next)
+
+    def commit_speculative(self, spec: SpecDraft):
+        """The verdict confirmed the premise: advance the key chain and
+        replay registers exactly as a real draft() commit would have."""
+        s = spec.slot
+        self.keys = _set(self.keys, s, spec.new_key)
+        self.rep_x = _set(self.rep_x, s, spec.in_x)
+        self.rep_pos = _set(self.rep_pos, s, spec.in_pos)
+        self.rep_beta = _set(self.rep_beta, s, spec.in_beta)
+        self.rep_key = _set(self.rep_key, s, spec.base_key)
+        self.commit_scales(spec.scale_next)
+
     # -- verdict application -------------------------------------------
+    def apply_verdict_slot(self, slot: int,
+                           verdict: wire_mod.VerdictPayload,
+                           rec: PendingRound) -> List[int]:
+        """Per-slot verdict (event-driven serving).  Positional caches
+        need no rollback."""
+        T = int(verdict.n_accept)
+        self.pos = _set(self.pos, slot, self.pos[slot] + T + 1)
+        self.x_last = _set(self.x_last, slot, int(verdict.new_token))
+        if self.m.name == "csqs":
+            self.beta = _set(self.beta, slot, float(np.float32(
+                verdict.beta_next)))
+        return [int(t) for t in rec.drafts[:T]] + [int(verdict.new_token)]
+
     def apply_verdicts_batch(self, mask: np.ndarray,
                              verdicts: Dict[int, wire_mod.VerdictPayload],
                              batch: DraftBatch) -> List[List[int]]:
@@ -382,6 +534,13 @@ class CloudVerifyEngine:
             self.x_last, self.pos, self.keys
         self.slot_codec = [self.fmt.codec] * B
 
+    def init_slots(self, n_slots: int, cache_len: int,
+                   spec: Optional[PagedSpec]):
+        self._alloc_state(n_slots)
+        self.cache_len = cache_len
+        self.tcache = model_mod.init_cache(self.model, n_slots, cache_len,
+                                           paged=spec)
+
     def prefill_batch(self, prompts, cache_len: int):
         B, S0 = prompts.shape
         self._alloc_state(B)
@@ -392,6 +551,28 @@ class CloudVerifyEngine:
         self.pos = torch.full((B,), S0 - 1, dtype=torch.int64,
                               device=self.device)
         self.rep_x, self.rep_pos = self.x_last, self.pos
+
+    def admit(self, slot: int, prompt, pt_row, seed: int,
+              wire_codec: Optional[str] = None):
+        S0 = int(prompt.shape[0])
+        _, cache1 = model_mod.prefill(self.model, prompt[None, :-1],
+                                      cache_len=self.cache_len)
+        model_mod.write_prefill_to_slot(self.tcache, cache1, slot, pt_row,
+                                        S0 - 1)
+        self.slot_codec[slot] = wire_codec or self.fmt.codec
+        key = cloud_row_key(seed, 0, self.device)
+        self.x_last = _set(self.x_last, slot, prompt[-1])
+        self.pos = _set(self.pos, slot, S0 - 1)
+        self.keys = _set(self.keys, slot, key)
+        self.rep_tokens = _set(self.rep_tokens, slot, 0)
+        self.rep_qhat = _set(self.rep_qhat, slot, 0.0)
+        self.rep_live = _set(self.rep_live, slot, False)
+        self.rep_x = _set(self.rep_x, slot, prompt[-1])
+        self.rep_pos = _set(self.rep_pos, slot, S0 - 1)
+        self.rep_key = _set(self.rep_key, slot, key)
+
+    def set_tables(self, pt):
+        model_mod.set_page_tables(self.tcache, pt)
 
     def verify(self, mask: np.ndarray,
                payloads: Dict[int, wire_mod.DraftPayload],
@@ -447,26 +628,30 @@ class CloudVerifyEngine:
 
 
 # ======================================================================
-# Facade: lockstep rounds over the wire
+# Edge-side base: slot lifecycle + per-slot round steps
 # ======================================================================
-class EdgeCloudEngine:
-    """Owns the two actors and moves packed payloads between them.
-    ``run_round`` is the lockstep schedule of Algorithm 1.  The slot
-    API (admit/release per request), speculative drafting and the paged
-    KV pool come with the serving slice."""
+class EdgeEngineBase:
+    """Everything the serving loops need from the EDGE side of the link:
+    format negotiation, the draft actor, the slot lifecycle, per-slot
+    drafting, speculative continuation and verdict application.
+
+    ``EdgeCloudEngine`` below extends it with the in-process cloud
+    actor; a socket-transport engine extends it the same way, with its
+    verify side in another process.  Sharing this class is what keeps
+    the two bit-identical: there is one implementation of every
+    token-affecting edge step, and subclasses only override how the
+    verify peer is reached (``_init_peer_slots`` / ``_admit_peer`` /
+    ``_push_tables``)."""
 
     def __init__(self, draft_cfg: ModelConfig, draft_model,
-                 target_cfg: ModelConfig, target_model,
-                 method: MethodConfig, engine: EngineConfig = EngineConfig(),
-                 channel: channel_mod.ChannelConfig =
-                 channel_mod.ChannelConfig(),
-                 seed: int = 0, device="cuda"):
-        assert draft_cfg.vocab == target_cfg.vocab, "shared vocabulary"
+                 method: MethodConfig, engine: EngineConfig,
+                 channel: channel_mod.ChannelConfig, seed: int,
+                 device="cuda"):
         assert engine.wire_codec in wire_mod.CODECS, engine.wire_codec
         assert engine.budget_model in ("analytic", "calibrated"), \
             engine.budget_model
         self.device = resolve_device(device)
-        self.dc, self.tc = draft_cfg, target_cfg
+        self.dc = draft_cfg
         self.m, self.e, self.ch = method, engine, channel
         self.seed = seed
         self.V = draft_cfg.vocab
@@ -476,9 +661,10 @@ class EdgeCloudEngine:
             codec=engine.wire_codec)
         self.edge = EdgeDraftEngine(draft_cfg, draft_model, method, engine,
                                     self.fmt, seed, self.device)
-        self.cloud = CloudVerifyEngine(target_cfg, target_model, method,
-                                       engine, self.fmt, seed, self.device)
+        self.paged = False
+        self.alloc: Optional[PageAllocator] = None
 
+    # -- state passthroughs (tests read these) ---------------------------
     @property
     def beta(self):
         return self.edge.beta
@@ -487,6 +673,228 @@ class EdgeCloudEngine:
     def pos(self):
         return self.edge.pos
 
+    @property
+    def x_last(self):
+        return self.edge.x_last
+
+    @property
+    def dcache(self):
+        return self.edge.dcache
+
+    # ------------------------------------------------------------------
+    # Session-slot API (continuous batching — repro_torch.serve)
+    # ------------------------------------------------------------------
+    def init_slots(self, n_slots: int, cache_len: int,
+                   page_size: int = 0, n_pages: Optional[int] = None):
+        """Allocate ``n_slots`` empty session slots with per-slot cache
+        capacity ``cache_len``.  Slots are filled by admit_slot and freed
+        by release_slot; rounds only advance committed slots.
+
+        ``page_size > 0`` switches the attention layers to the PAGED
+        layout: one shared pool of ``n_pages`` pages per layer (default:
+        slots × pages-per-slot, the dense footprint).  The edge and cloud
+        actors mirror ONE allocator, so the device holds the sum of
+        actual request lengths and ``n_pages`` caps concurrency."""
+        self.B = n_slots
+        self.paged = page_size > 0
+        spec = None
+        if self.paged:
+            assert cache_len % page_size == 0, (cache_len, page_size)
+            maxp = cache_len // page_size
+            n_pages = n_pages if n_pages is not None else n_slots * maxp
+            assert n_pages >= maxp, \
+                "pool must fit at least one worst-case request"
+            spec = PagedSpec(page_size=page_size, n_pages=n_pages,
+                             max_pages_per_slot=maxp)
+            self.alloc = PageAllocator(n_pages, page_size, n_slots, maxp)
+        else:
+            self.alloc = None
+        self.cache_len = cache_len
+        self.edge.init_slots(n_slots, cache_len, spec)
+        self._init_peer_slots(n_slots, cache_len, spec)
+        self.active = np.zeros((n_slots,), bool)
+        self.out_tokens = [[] for _ in range(n_slots)]
+
+    def _init_peer_slots(self, n_slots: int, cache_len: int,
+                         spec: Optional[PagedSpec]):
+        """Hook: mirror the slot allocation on the verify side."""
+
+    # -- paged-pool bookkeeping (host side; no-ops in dense mode) -------
+    def _device_tables(self):
+        return sanitize_page_table(self.alloc.table, self.alloc.n_pages,
+                                   self.device)
+
+    def _push_tables(self):
+        self.edge.set_tables(self._device_tables())
+
+    def pages_needed(self, n_tokens: int) -> int:
+        assert self.paged
+        return self.alloc.pages_needed(n_tokens)
+
+    def free_pages(self) -> int:
+        assert self.paged
+        return self.alloc.free_pages
+
+    def ensure_round_capacity(self) -> bool:
+        """Grow every active slot's page table to cover this round's
+        draft window (pos + L_max + 1 positions).  Returns False on pool
+        exhaustion WITHOUT rolling back other slots' growth — the
+        serving layer preempts a request and retries."""
+        if not self.paged:
+            return True
+        pos = self.pos.cpu().numpy()
+        for slot in range(self.B):
+            if not self.active[slot]:
+                continue
+            if not self.alloc.ensure(slot,
+                                     int(pos[slot]) + self.e.L_max + 1):
+                return False
+        return True
+
+    def admit_slot(self, slot: int, prompt, seed: int,
+                   wire_codec: Optional[str] = None):
+        """Prefill ``prompt`` (1-D ints, ≥ 2 tokens) into ``slot`` on
+        BOTH sides of the link.  The request's RNG/β/position state
+        restarts from scratch; other slots' caches and controller state
+        are untouched.  ``wire_codec`` overrides the link's negotiated
+        codec version for this request.
+
+        Capacity contract: each round writes draft KV up to pos + L_max,
+        so the CALLER bounds generation length such that prompt +
+        generated + L_max + 1 fits in cache_len (ServeSession enforces
+        this from the request's max_new_tokens)."""
+        prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                                 device=self.device)
+        assert prompt.dim() == 1 and prompt.shape[0] >= 2
+        assert not self.active[slot], f"slot {slot} still occupied"
+        S0 = int(prompt.shape[0])
+        assert S0 + self.e.L_max + 1 <= self.cache_len, \
+            f"prompt ({S0}) + draft window ({self.e.L_max + 1}) exceeds " \
+            f"slot capacity {self.cache_len}"
+        assert wire_codec is None or wire_codec in wire_mod.CODECS, \
+            wire_codec
+        pt_row = None
+        if self.paged:
+            if not self.alloc.admit(slot, S0 - 1):
+                raise RuntimeError(
+                    f"page pool exhausted admitting slot {slot} "
+                    f"({self.alloc.free_pages} free); the scheduler "
+                    f"should gate admissions on free_pages()")
+            pt_row = self._device_tables()[slot]
+        self.edge.admit(slot, prompt, pt_row, seed, wire_codec=wire_codec)
+        self._admit_peer(slot, prompt, pt_row, seed, wire_codec)
+        self.active[slot] = True
+        self.out_tokens[slot] = []
+
+    def _admit_peer(self, slot: int, prompt, pt_row, seed: int,
+                    wire_codec: Optional[str]):
+        """Hook: mirror the admission on the verify side."""
+
+    def release_slot(self, slot: int):
+        """Evict a finished (or preempted) request.  Dense mode: the
+        slot's cache is dead weight until the next admit overwrites it.
+        Paged mode: every page returns to the pool immediately."""
+        self.active[slot] = False
+        if self.paged:
+            self.alloc.release(slot)
+
+    # ------------------------------------------------------------------
+    # Per-slot round steps (event-driven serving — repro_torch.serve.events)
+    # ------------------------------------------------------------------
+    def draft_slots(self, slots: List[int]) -> Dict[int, PendingRound]:
+        """Draft one round for ``slots`` (each on its own edge device);
+        returns the packed uplink message + emission record per slot."""
+        mask = np.zeros((self.B,), bool)
+        mask[list(slots)] = True
+        if self.paged:
+            pos = self.pos.cpu().numpy()
+            for s in slots:
+                ok = self.alloc.ensure(s, int(pos[s]) + self.e.L_max + 1)
+                assert ok, "page pool exhausted — the event loop's " \
+                    "worst-case admission gate should prevent this"
+            self._push_tables()
+        batch = self.edge.draft(mask)
+        return {s: self.edge.pending_round(batch, s) for s in slots}
+
+    def draft_speculative_slot(self, slot: int,
+                               rec: PendingRound) -> Optional[SpecDraft]:
+        """Optimistic continuation for ``slot`` while its round is in
+        flight.  Returns None when the window would exceed the slot's
+        capacity or the page pool."""
+        n = rec.n_live
+        pos_next = int(self.pos[slot]) + n + 1
+        if pos_next + self.e.L_max + 1 > self.cache_len:
+            return None
+        if self.paged:
+            if not self.alloc.ensure(slot, pos_next + self.e.L_max + 1):
+                return None
+            self._push_tables()
+        return self.edge.draft_speculative(
+            slot, int(rec.drafts[n]), pos_next, float(rec.betas[n]))
+
+    def commit_speculative(self, spec: SpecDraft):
+        self.edge.commit_speculative(spec)
+
+    def spec_premise_holds(self, spec: SpecDraft, rec: PendingRound,
+                           verdict: wire_mod.VerdictPayload) -> bool:
+        """Was the optimistic continuation drafted from the true state?
+        (β agreement is implied: accept-all backtracks to the same
+        trajectory entry the speculation resumed from.)"""
+        return (verdict.n_accept == rec.n_live
+                and verdict.new_token == spec.in_x)
+
+    def unpack_verdict_slot(self, slot: int,
+                            data: bytes) -> wire_mod.VerdictPayload:
+        return self.fmt.unpack_verdict(data,
+                                       codec=self.edge.slot_codec[slot])
+
+    def unpack_verdict_batch(self, data: bytes):
+        """Edge side: decode a cell's frame back to ascending-slot
+        (slot, VerdictPayload) pairs."""
+        return self.fmt.unpack_verdict_batch(data, self.B)
+
+    def apply_verdict_slot(self, slot: int,
+                           verdict: wire_mod.VerdictPayload,
+                           rec: PendingRound,
+                           shrink: bool = True) -> List[int]:
+        """Edge side of verdict arrival: emit tokens, resume β, shrink
+        the slot's pages past the kept length.  ``shrink=False`` keeps
+        the grown window — the event loop passes it when a confirmed
+        speculative round's draft KV lives in those pages."""
+        emitted = self.edge.apply_verdict_slot(slot, verdict, rec)
+        self.out_tokens[slot].extend(emitted)
+        if self.paged and shrink:
+            self.alloc.shrink(slot, int(self.pos[slot]))
+        return emitted
+
+
+# ======================================================================
+# Facade: slot lifecycle + lockstep rounds over the wire
+# ======================================================================
+class EdgeCloudEngine(EdgeEngineBase):
+    """Owns the two actors, the slot lifecycle and the (mirrored) page
+    allocator; moves packed payloads between them.  ``run_round`` is the
+    lockstep schedule of Algorithm 1; the event-driven pipelined
+    schedule lives in ``repro_torch.serve.events`` and drives the
+    per-slot methods instead."""
+
+    def __init__(self, draft_cfg: ModelConfig, draft_model,
+                 target_cfg: ModelConfig, target_model,
+                 method: MethodConfig, engine: EngineConfig = EngineConfig(),
+                 channel: channel_mod.ChannelConfig =
+                 channel_mod.ChannelConfig(),
+                 seed: int = 0, device="cuda"):
+        assert draft_cfg.vocab == target_cfg.vocab, "shared vocabulary"
+        super().__init__(draft_cfg, draft_model, method, engine, channel,
+                         seed, device)
+        self.tc = target_cfg
+        self.cloud = CloudVerifyEngine(target_cfg, target_model, method,
+                                       engine, self.fmt, seed, self.device)
+
+    @property
+    def tcache(self):
+        return self.cloud.tcache
+
     def prefill(self, prompts):
         """prompts: (B, S0) ints.  Prepares both actors; the last prompt
         token becomes x_last (first token the draft loop processes)."""
@@ -494,40 +902,73 @@ class EdgeCloudEngine:
                                   device=self.device)
         B, S0 = prompts.shape
         self.B = B
+        self.paged = False
+        self.alloc = None
         total = S0 + 4096  # cache capacity headroom
         self.edge.prefill_batch(prompts, total)
         self.cloud.prefill_batch(prompts, total)
         self.active = np.ones((B,), bool)
         self.out_tokens = [[] for _ in range(B)]
 
+    # -- verify-side hooks (the in-process cloud actor) -----------------
+    def _init_peer_slots(self, n_slots: int, cache_len: int,
+                         spec: Optional[PagedSpec]):
+        self.cloud.init_slots(n_slots, cache_len, spec)
+
+    def _admit_peer(self, slot: int, prompt, pt_row, seed: int,
+                    wire_codec: Optional[str]):
+        self.cloud.admit(slot, prompt, pt_row, seed, wire_codec=wire_codec)
+
+    def _push_tables(self):
+        pt = self._device_tables()
+        self.edge.set_tables(pt)
+        self.cloud.set_tables(pt)
+
+    def verify_slots(self, packed: Dict[int, bytes]) -> VerifyBatch:
+        """Cloud side of one round for the slots whose payloads arrived:
+        unpack (with each slot's negotiated codec), verify, pack
+        verdicts."""
+        mask = np.zeros((self.B,), bool)
+        mask[list(packed)] = True
+        if self.paged:
+            self._push_tables()
+        payloads = wire_mod.unpack_drafts(
+            self.fmt, packed,
+            codecs={s: self.cloud.slot_codec[s] for s in packed})
+        return self.cloud.verify(mask, payloads)
+
     # -- per-slot verdict codec and verdict batching ---------------------
     def pack_verdict_slot(self, slot: int,
                           v: wire_mod.VerdictPayload) -> bytes:
         return self.fmt.pack_verdict(v, codec=self.cloud.slot_codec[slot])
 
-    def unpack_verdict_slot(self, slot: int,
-                            data: bytes) -> wire_mod.VerdictPayload:
-        return self.fmt.unpack_verdict(data,
-                                       codec=self.edge.slot_codec[slot])
-
     def pack_verdict_batch(self, verdicts: Dict[int,
                                                 wire_mod.VerdictPayload]
                            ) -> bytes:
-        """One cell's verdicts in ascending slot order, one frame."""
+        """Cloud side: one cell's verdicts in ascending slot order (the
+        deterministic frame order both ends rely on), one frame coded
+        with the LINK's negotiated codec."""
         return self.fmt.pack_verdict_batch(sorted(verdicts.items()), self.B)
-
-    def unpack_verdict_batch(self, data: bytes):
-        return self.fmt.unpack_verdict_batch(data, self.B)
 
     # ------------------------------------------------------------------
     def run_round(self, verdict_groups: Optional[List[List[int]]] = None):
-        """One lockstep SD batch over the active rows, through the wire.
-        Returns a metrics dict (host values).  ``verdict_groups``: lists of
+        """One lockstep SD batch over the ACTIVE rows, through the wire.
+        Returns a metrics dict (host values).  Inactive slots still flow
+        through the compute (static shapes, replaying their registers)
+        but are masked out of budgets, state advancement and every
+        reported statistic.  ``verdict_groups``: lists of
         slots sharing a downlink; each group's verdicts cross as ONE coded
         frame, and the edge applies the frame-decoded verdicts."""
         L = self.e.L_max
         active = np.asarray(self.active, bool)
         n_active = max(int(active.sum()), 1)
+        if self.paged:
+            if not self.ensure_round_capacity():
+                raise RuntimeError(
+                    "page pool exhausted growing the round's draft "
+                    "windows; preempt a request (ServeSession does) "
+                    "before run_round")
+            self._push_tables()
 
         db = self.edge.draft(active)
         # --- the uplink: packed bytes cross, the cloud decodes ---------
@@ -566,6 +1007,14 @@ class EdgeCloudEngine:
         emitted = self.edge.apply_verdicts_batch(active, verdicts, db)
         for b in range(self.B):
             self.out_tokens[b].extend(emitted[b])
+        if self.paged:
+            # speculative rollback, memory side: pages covering only the
+            # rejected draft tail (positions >= new pos) go back to the
+            # pool; the next round's ensure re-grows as needed
+            pos_np = self.pos.cpu().numpy()
+            for slot in range(self.B):
+                if active[slot]:
+                    self.alloc.shrink(slot, int(pos_np[slot]))
 
         T_np = vb.T
         live_np = db.live
@@ -602,6 +1051,10 @@ class EdgeCloudEngine:
             "packed": dict(db.packed),
             "verdict_packed": verdict_packed,
         }
+        if self.paged:
+            metrics["pages_in_use"] = self.alloc.pages_in_use
+            metrics["free_pages"] = self.alloc.free_pages
+            metrics["peak_pages_in_use"] = self.alloc.peak_in_use
         if self.e.collect_theory:
             metrics["q"] = db.ys["q"][:L].transpose(0, 1).cpu().numpy()
             metrics["q_hat"] = db.ys["q_hat"][:L].transpose(0, 1) \

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.slq import ranks
+from repro_torch.core.sqs import softmax
 
 
 def softmax_padded(logits_padded, inv_temp: float):
@@ -79,3 +80,37 @@ def select_n_ref(v, elig, n):
     earliest-index first.  n: (B, 1) >= 0."""
     key = torch.where(elig, -v.float(), torch.inf)
     return (ranks(key) < n) & elig
+
+
+def gqa_decode_ref(q, k, v, pos, k_scale=None, v_scale=None):
+    """Twin of the flash-decode kernel over a contiguous cache (int8 K/V
+    dequantized with per-(position, head) scales).  q: (B, nq, hd);
+    k/v: (B, S, nkv, hd); pos: (B,).  Returns (B, nq, hd) f32."""
+    B, nq, hd = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None]
+        vf = vf * v_scale[..., None]
+    qg = q.reshape(B, nkv, nq // nkv, hd).float() / float(hd) ** 0.5
+    s = torch.einsum("bkgh,bskh->bkgs", qg, kf)
+    valid = torch.arange(S, device=q.device)[None, :] <= \
+        pos.to(torch.int64)[:, None]
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    o = torch.einsum("bkgs,bskh->bkgh", softmax(s), vf)
+    return o.reshape(B, nq, hd)
+
+
+def paged_gqa_decode_ref(q, k, v, page_table, pos, k_scale=None,
+                         v_scale=None):
+    """Twin of the paged flash-decode kernel: gather each slot's pages
+    into a dense (B, max_pages * page_size, nkv, hd) cache in position
+    order, then the dense twin."""
+    def gather(pool):
+        g = pool[page_table.long()]                # (B, maxp, ps, ...)
+        return g.reshape((g.shape[0], g.shape[1] * g.shape[2])
+                         + g.shape[3:])
+
+    ks = gather(k_scale) if k_scale is not None else None
+    vs = gather(v_scale) if v_scale is not None else None
+    return gqa_decode_ref(q, gather(k), gather(v), pos, ks, vs)

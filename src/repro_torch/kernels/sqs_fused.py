@@ -1,10 +1,5 @@
-"""Build, binding and wrappers of the Hopper SQS kernels (``csrc/sqs_fused.cu``).
-
-The CUDA source has a plain C interface; it is compiled with ``nvcc`` for
-``sm_90a`` into a shared library under ``build/repro_torch_kernels/`` at
-first use (named by a hash of source and flags, so an edited source
-rebuilds) and loaded with ctypes.  Nothing is built when this module is
-imported.
+"""Binding and wrappers of the Hopper SQS kernels (``csrc/sqs_fused.cu``),
+built by ``kernels.build`` at first use.
 
 Each wrapper takes the plain twin in ``kernels.ref`` for a tensor on the
 CPU, and for a CUDA tensor launches its kernel on the current stream or
@@ -13,29 +8,30 @@ raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.build import BASE_FLAGS, KernelLibrary, raise_on
 
 LANE = 128
 BISECT_ITERS = 40
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "sqs_fused.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
-    "repro_torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+# --fmad=false: the kernels' integer decisions on floats (q >= beta, the
+# lattice rounding, the +-1 select) need the twin's rounding points
+NVCC_FLAGS = BASE_FLAGS + ["--fmad=false"]
 
 LAUNCHES = {"sqs_fused": 0, "topk_threshold": 0}
 
-_lib = None
-_lock = threading.Lock()
+
+def _bind(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sqs_fused_launch.argtypes = [p, p, p, p, p, p, i, i, f, i, i, p]
+    lib.sqs_fused_launch.restype = i
+    lib.topk_threshold_launch.argtypes = [p, p, p, i, i, f, i, i, p]
+    lib.topk_threshold_launch.restype = i
+
+
+LIBRARY = KernelLibrary("sqs_fused.cu", NVCC_FLAGS, _bind)
 
 
 def pad_vocab(V: int) -> int:
@@ -47,51 +43,9 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the Hopper kernels are built from "
-                       f"{SOURCE} on a machine with the CUDA toolkit")
-
-
-def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the kernel library if this source/flag combination has no
-    build yet; returns the shared library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libsqs_fused_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr.strip())
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.sqs_fused_launch.argtypes = [p, p, p, p, p, p, i, i, f, i, i,
-                                             p]
-            lib.sqs_fused_launch.restype = i
-            lib.topk_threshold_launch.argtypes = [p, p, p, i, i, f, i, i, p]
-            lib.topk_threshold_launch.restype = i
-            _lib = lib
-    return _lib
+def build(verbose: bool = False):
+    """Compile the library (if needed); returns its path."""
+    return LIBRARY.build(verbose)
 
 
 def _check_rows(logits_padded):
@@ -102,12 +56,6 @@ def _check_rows(logits_padded):
                          f"{LANE}, got {tuple(logits_padded.shape)}")
     if not logits_padded.is_contiguous():
         raise ValueError("logits must be contiguous")
-
-
-def _raise_on(err: int, name: str):
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({torch.cuda.get_device_name()})")
 
 
 def sqs_fused(logits_padded, beta, *, inv_temp: float, ell: int,
@@ -133,14 +81,14 @@ def sqs_fused(logits_padded, beta, *, inv_temp: float, ell: int,
     mask = torch.empty((B, Vp), dtype=torch.int32, device=dev)
     stats = torch.empty((B, 4), dtype=torch.float32, device=dev)
     scratch = torch.empty((B, Vp), dtype=torch.float32, device=dev)
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(dev):
         err = lib.sqs_fused_launch(
             logits_padded.data_ptr(), beta.data_ptr(), b.data_ptr(),
             mask.data_ptr(), stats.data_ptr(), scratch.data_ptr(), B, Vp,
             float(inv_temp), int(ell), int(exact_k),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "sqs_fused")
+    raise_on(err, "sqs_fused")
     LAUNCHES["sqs_fused"] += 1
     return b, mask, stats
 
@@ -159,12 +107,12 @@ def topk_threshold(logits_padded, K: int, *, inv_temp: float,
     dev = logits_padded.device
     tau = torch.empty((B, 2), dtype=torch.float32, device=dev)
     scratch = torch.empty((B, Vp), dtype=torch.float32, device=dev)
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(dev):
         err = lib.topk_threshold_launch(
             logits_padded.data_ptr(), tau.data_ptr(), scratch.data_ptr(), B,
             Vp, float(inv_temp), int(K), int(iters),
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "topk_threshold")
+    raise_on(err, "topk_threshold")
     LAUNCHES["topk_threshold"] += 1
     return tau

@@ -1,6 +1,23 @@
-"""Dense GQA attention: prefill over the prompt and extend over a
-contiguous KV cache (mirrors the dense path of ``repro.models.attention``;
-the paged, int8, sliding-window and MLA variants come in later slices).
+"""GQA attention: prefill over the prompt and extend over a KV cache
+(mirrors ``repro.models.attention`` for full attention; the
+sliding-window and MLA variants come in later slices).
+
+KV caches come in two layouts, each in the compute dtype or in int8 with
+per-(position, head) f32 scale tables:
+
+  dense   (B, Sc, nkv, hd) per slot;
+  paged   a pool of (n_pages + 1, page_size, nkv, hd) pages shared by
+          every slot, addressed through a per-slot page table
+          (``core.pages.PageAllocator``).  ``attn_extend`` takes the
+          paged path when the cache dict carries a ``page_table`` leaf;
+          after the gather both layouts run the SAME ``_extend_core``,
+          so a request's token stream is bit-identical across layouts.
+          Pool row ``n_pages`` is a TRASH page: masked-out batch rows and
+          unallocated table entries point there, so their writes never
+          land on a live page.
+
+int8 caches are dequantized in bf16 before ``_extend_core``
+(``int8 -> bf16`` times ``scale -> bf16``), as the reference does.
 
 The extend math ``_extend_core`` contracts bf16 operands with float32
 accumulation and keeps float32 scores, as the reference's
@@ -10,14 +27,41 @@ float32), so the scores are never rounded to bf16.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.slq import reciprocal
 from repro_torch.core.sqs import softmax
 from repro_torch.models.layers import frozen, rope_apply_by_cfg
 
 NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedSpec:
+    """Geometry of the paged KV pool (one pool per attention layer).
+
+    ``n_pages`` usable pages of ``page_size`` positions; page tables are
+    ``max_pages_per_slot`` wide (per-request capacity ceiling).  The
+    physical pool has ``n_pages + 1`` rows -- the last is the trash page.
+    """
+    page_size: int
+    n_pages: int
+    max_pages_per_slot: int
+
+    @property
+    def trash_page(self) -> int:
+        return self.n_pages
+
+
+def paged_eligible(cfg: ModelConfig) -> bool:
+    """Which attention layers can live in the page pool: standard GQA
+    over the full context (sliding-window ring buffers and MLA latent
+    caches stay dense)."""
+    return cfg.attention == "full" and not cfg.is_mla
 
 
 class Attention(nn.Module):
@@ -100,16 +144,120 @@ def masked_attention(q, k, v, q_pos, k_pos, causal: bool):
     return torch.cat(outs, 1).reshape(B, S, nq, hd)
 
 
+# ----------------------------------------------------------------------
+# Caches
+# ----------------------------------------------------------------------
+def _int8(cfg: ModelConfig) -> bool:
+    return cfg.kv_cache_dtype == "int8"
+
+
+def make_kv_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device):
+    """One layer's dense cache, zero-filled."""
+    shp = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    if _int8(cfg):
+        return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
+                "v": torch.zeros(shp, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shp[:3], device=device),
+                "v_scale": torch.zeros(shp[:3], device=device)}
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+
+def _quantize_heads(x):
+    """x: (B, L, nkv, hd) -> (int8, scale (B, L, nkv)).  The reference
+    runs this under jit, where XLA turns the division by 127 into a
+    multiplication by its float32 reciprocal."""
+    xf = x.float()
+    scale = xf.abs().amax(-1).clamp_min(1e-8) * reciprocal(127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize(c8, cs):
+    """int8 cache -> bf16, as the reference's ``ck8.astype(bf16) *
+    cks.astype(bf16)``."""
+    return c8.to(torch.bfloat16) * cs[..., None].to(torch.bfloat16)
+
+
+def make_paged_kv_cache(cfg: ModelConfig, batch: int, spec: PagedSpec,
+                        dtype, device):
+    """Page pool + per-slot page table for one attention layer.  Every
+    table entry starts at the trash page (nothing allocated); the engine
+    overwrites tables from the host-side ``PageAllocator``."""
+    assert paged_eligible(cfg), (cfg.name, cfg.attention, cfg.kv_lora_rank)
+    shp = (spec.n_pages + 1, spec.page_size, cfg.n_kv_heads, cfg.head_dim)
+    pt = torch.full((batch, spec.max_pages_per_slot), spec.trash_page,
+                    dtype=torch.int64, device=device)
+    if _int8(cfg):
+        return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
+                "v": torch.zeros(shp, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shp[:3], device=device),
+                "v_scale": torch.zeros(shp[:3], device=device),
+                "page_table": pt}
+    return {"k": torch.zeros(shp, dtype=dtype, device=device),
+            "v": torch.zeros(shp, dtype=dtype, device=device),
+            "page_table": pt}
+
+
+def sanitize_page_table(table, n_pages: int, device):
+    """Host table -> device table: FREE (-1) entries become the trash
+    page, so unallocated logical pages read garbage (masked) and write
+    harmlessly instead of wrapping to a live page."""
+    t = torch.as_tensor(table, dtype=torch.int64)
+    return torch.where(t >= 0, t, n_pages).to(device)
+
+
+def page_gather(pool, pt):
+    """pool: (P, ps, ...); pt: (B, maxp) -> (B, maxp*ps, ...) -- a slot's
+    cache in position order (trash-page rows are masked by position
+    downstream)."""
+    g = pool[pt]                               # (B, maxp, ps, ...)
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+def page_scatter(pool, vals, pt, positions):
+    """Write ``vals`` (B, L, ...) at absolute ``positions`` (B, L)
+    through page table ``pt`` (B, maxp), IN PLACE.  Slots own disjoint
+    pages, so live rows never collide; rows whose table points at the
+    trash page write there."""
+    ps = pool.shape[1]
+    pg = torch.gather(pt, 1, positions // ps)               # (B, L)
+    pool[pg, positions % ps] = vals.to(pool.dtype)
+
+
+def prefill_into_pages(paged, dense_kv, pt_row, length: int):
+    """Write a batch-1 prefill cache's first ``length`` positions through
+    one slot's page table row, IN PLACE (one layer: pools (P, ps, ...),
+    prefill leaves (1, S, ...))."""
+    ps = paged["k"].shape[1]
+    idx = torch.arange(length, device=pt_row.device)
+    pg, off = pt_row[idx // ps], idx % ps
+    for name, vals in dense_kv.items():
+        if name in paged:
+            paged[name][pg, off] = vals[0, :length].to(paged[name].dtype)
+
+
+# ----------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------
 def attn_prefill(cfg: ModelConfig, p: Attention, x, positions):
-    """Causal attention over the prompt; returns (out, {"k", "v"})."""
+    """Causal attention over the prompt; returns (out, cache leaves):
+    {"k", "v"}, or int8 {"k", "v", "k_scale", "v_scale"}."""
     q, k, v = _qkv(cfg, p, x, positions)
     o = masked_attention(q, k, v, positions, positions, causal=True)
+    if _int8(cfg):
+        k8, ks = _quantize_heads(k)
+        v8, vs = _quantize_heads(v)
+        return _out(o, p.w_o), {"k": k8, "v": v8, "k_scale": ks,
+                                "v_scale": vs}
     return _out(o, p.w_o), {"k": k, "v": v}
 
 
 def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, dt):
-    """L queries against the whole cache ``ck``/``cv`` (B, Sc, nkv, hd),
-    causally masked by absolute position."""
+    """L queries against the whole (gathered) cache ``ck``/``cv``
+    (B, Sc, nkv, hd), causally masked by absolute position.  Both cache
+    layouts run this one function, which is what makes paged and dense
+    serving bit-identical."""
     B, L = abs_new.shape
     Sc = ck.shape[1]
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -132,12 +280,53 @@ def attn_extend(cfg: ModelConfig, p: Attention, x, positions, cache, pos):
     other; ``pos`` (B,) is the absolute index of the first new token.
     Writes the new K/V into ``cache`` IN PLACE (the reference returns an
     updated copy; rows replaying their last step rewrite the same values,
-    so nothing a row later reads changes)."""
+    so nothing a row later reads changes).  A cache dict carrying a
+    ``page_table`` leaf takes the paged path."""
+    if "page_table" in cache:
+        return _attn_extend_paged(cfg, p, x, positions, cache, pos)
     q, k, v = _qkv(cfg, p, x, positions)
     B, L = x.shape[:2]
     abs_new = pos[:, None] + torch.arange(L, device=x.device)[None, :]
     bidx = torch.arange(B, device=x.device)[:, None]
-    cache["k"][bidx, abs_new] = k.to(cache["k"].dtype)
-    cache["v"][bidx, abs_new] = v.to(cache["v"].dtype)
-    return _extend_core(cfg, p, q, cache["k"], cache["v"], abs_new,
-                        x.dtype), cache
+    if "k_scale" in cache:
+        k8, ks = _quantize_heads(k)
+        v8, vs = _quantize_heads(v)
+        cache["k"][bidx, abs_new] = k8
+        cache["v"][bidx, abs_new] = v8
+        cache["k_scale"][bidx, abs_new] = ks
+        cache["v_scale"][bidx, abs_new] = vs
+        ck = _dequantize(cache["k"], cache["k_scale"])
+        cv = _dequantize(cache["v"], cache["v_scale"])
+    else:
+        cache["k"][bidx, abs_new] = k.to(cache["k"].dtype)
+        cache["v"][bidx, abs_new] = v.to(cache["v"].dtype)
+        ck, cv = cache["k"], cache["v"]
+    return _extend_core(cfg, p, q, ck, cv, abs_new, x.dtype), cache
+
+
+def _attn_extend_paged(cfg: ModelConfig, p: Attention, x, positions, cache,
+                       pos):
+    """Paged extend: scatter the L new tokens' K/V into the page pool
+    through the slot page tables, gather each slot's pages back into
+    position order, then the shared ``_extend_core``.  The engine
+    guarantees every ACTIVE row's table covers pos+L tokens; masked rows
+    point at the trash page."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    B, L = x.shape[:2]
+    pt = cache["page_table"]                            # (B, maxp) >= 0
+    abs_new = pos[:, None] + torch.arange(L, device=x.device)[None, :]
+    if "k_scale" in cache:
+        k8, ks = _quantize_heads(k)
+        v8, vs = _quantize_heads(v)
+        for name, vals in (("k", k8), ("v", v8), ("k_scale", ks),
+                           ("v_scale", vs)):
+            page_scatter(cache[name], vals, pt, abs_new)
+        ck = _dequantize(page_gather(cache["k"], pt),
+                         page_gather(cache["k_scale"], pt))
+        cv = _dequantize(page_gather(cache["v"], pt),
+                         page_gather(cache["v_scale"], pt))
+    else:
+        page_scatter(cache["k"], k, pt, abs_new)
+        page_scatter(cache["v"], v, pt, abs_new)
+        ck, cv = page_gather(cache["k"], pt), page_gather(cache["v"], pt)
+    return _extend_core(cfg, p, q, ck, cv, abs_new, x.dtype), cache

@@ -1,14 +1,21 @@
 """Top-level model API (mirrors ``repro.models.model``):
 
-    Transformer(cfg, dtype, device)                -> module (uninitialised;
+    Transformer(cfg, dtype, device="cuda")         -> module (uninitialised;
                                                      see repro_torch.bridge)
     prefill(model, tokens, cache_len)              -> (last_logits, cache)
     extend_step(model, tokens, cache, pos)         -> (logits (B,L,V), cache)
     decode_step(model, token, cache, pos)          -> (logits (B,V), cache)
+    init_cache(model, batch, seq, paged=None)      -> empty serving cache
+    set_page_tables(cache, pt)                     -> cache, tables refreshed
+    write_prefill_to_slot(big, small, slot, ...)   -> prompt into one slot
 
-A cache is a list with one {"k", "v"} dict of (B, cache_len, nkv, hd)
-tensors per layer; ``extend_step`` writes into it in place.  ``extend_step``
-with L > 1 is the speculative-decoding verification pass.
+A cache is a list with one dict per layer: dense {"k", "v"} of
+(B, cache_len, nkv, hd) tensors, plus f32 "k_scale"/"v_scale"
+(B, cache_len, nkv) when ``cfg.kv_cache_dtype == "int8"``; a paged layer
+holds pools (n_pages + 1, page_size, ...) of the same leaves and its
+slots' "page_table" (B, max_pages).  ``extend_step`` writes into the cache
+in place and dispatches on "page_table"; with L > 1 it is the
+speculative-decoding verification pass.
 """
 from __future__ import annotations
 
@@ -17,16 +24,19 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (compute_dtype, embed_apply, frozen,
                                        lm_head_apply, rmsnorm)
 from repro_torch.models.transformer import Block, check_supported
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype=None, device="cpu"):
+    def __init__(self, cfg: ModelConfig, dtype=None, device="cuda"):
         super().__init__()
         check_supported(cfg)
+        device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype or compute_dtype(cfg)
         d = cfg.d_model
@@ -85,6 +95,46 @@ def extend_step(model: Transformer, tokens, cache, pos):
     for blk, c in zip(model.layers, cache):
         x = blk.extend(x, positions, c, pos)
     return model.head(x), cache
+
+
+def init_cache(model: Transformer, batch: int, seq: int,
+               paged: Optional[attn_mod.PagedSpec] = None):
+    """Empty serving cache.  ``paged``: every attention layer gets a
+    shared page pool + per-slot page table instead of dense (B, seq, ...)
+    KV."""
+    cfg, dev = model.cfg, model.device
+    if paged is not None:
+        return [attn_mod.make_paged_kv_cache(cfg, batch, paged, model.dtype,
+                                             dev)
+                for _ in model.layers]
+    return [attn_mod.make_kv_cache(cfg, batch, seq, model.dtype, dev)
+            for _ in model.layers]
+
+
+def set_page_tables(cache, pt):
+    """Point every paged layer at the sanitized device table ``pt``
+    (B, maxp).  The engine calls this after each host-side allocator
+    change (admit / growth / rollback shrink / release)."""
+    for c in cache:
+        if "page_table" in c:
+            c["page_table"] = pt
+    return cache
+
+
+@torch.no_grad()
+def write_prefill_to_slot(big, small, slot: int, pt_row=None,
+                          length: int = 0):
+    """Scatter a batch-1 prefill cache ``small`` into the multi-slot
+    cache ``big`` IN PLACE: dense layers into batch row ``slot`` (the
+    whole row, as the reference's dynamic_update_slice), paged layers
+    the prompt's first ``length`` positions through ``pt_row``."""
+    for b, s in zip(big, small):
+        if "page_table" in b:
+            attn_mod.prefill_into_pages(b, s, pt_row, length)
+        else:
+            for name, t in s.items():
+                b[name][slot] = t[0].to(b[name].dtype)
+    return big
 
 
 def decode_step(model: Transformer, token, cache, pos):

@@ -40,11 +40,13 @@ class Block(nn.Module):
 
 
 def check_supported(cfg: ModelConfig):
-    """The port runs dense GQA attention + MLP stacks so far."""
+    """The port runs dense GQA attention + MLP stacks so far, with a KV
+    cache in the compute dtype or in int8."""
     dense = (cfg.block_pattern == ("attn",) and cfg.ffn_pattern == ("mlp",)
              and cfg.n_prefix_layers == 0 and cfg.n_encoder_layers == 0
              and not cfg.is_mla and cfg.attention == "full"
-             and cfg.kv_cache_dtype == "compute" and cfg.frontend == "none")
+             and cfg.kv_cache_dtype in ("compute", "int8")
+             and cfg.frontend == "none")
     if not dense:
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA attention+MLP configs are ported "

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY_F32 = 1.1754943508222875e-38
@@ -50,11 +52,11 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def PRNGKey(seed: int, device="cpu"):
+def PRNGKey(seed: int, device="cuda"):
     """jax.random.PRNGKey with 64-bit types off: the seed is taken as a
     32-bit integer, so the key is (0, seed mod 2**32)."""
     return torch.tensor([0, int(seed) & MASK], dtype=torch.int64,
-                        device=device)
+                        device=resolve_device(device))
 
 
 def fold_in(key, data: int):

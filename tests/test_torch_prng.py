@@ -19,7 +19,7 @@ def _words(key):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_key_split_fold_in_bits(seed):
-    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
     np.testing.assert_array_equal(_words(kj), kt.numpy())
     for data in (0, 1, 0x0C10, 2**32 - 1):
         np.testing.assert_array_equal(_words(jax.random.fold_in(kj, data)),
@@ -40,7 +40,7 @@ def test_uniform_float32_bits(shape, bounds):
     for seed in SEEDS:
         a = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), shape,
                                           jnp.float32, *bounds))
-        b = prng.uniform(prng.PRNGKey(seed), shape, *bounds).numpy()
+        b = prng.uniform(prng.PRNGKey(seed, "cpu"), shape, *bounds).numpy()
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
 
 
@@ -63,5 +63,5 @@ def test_randint_ids(shape, lo, hi):
     for seed in SEEDS:
         a = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), shape,
                                           lo, hi))
-        b = prng.randint(prng.PRNGKey(seed), shape, lo, hi).numpy()
+        b = prng.randint(prng.PRNGKey(seed, "cpu"), shape, lo, hi).numpy()
         np.testing.assert_array_equal(a, b)
