@@ -24,9 +24,19 @@ Phases:
      path and the measured per-round t_slm / t_llm;
   6. the flash-decode kernels on the page pools that serving wrote (4
      slots admitted through the slot API with prompts of 17 to 4001
-     tokens, two paged rounds): against their twins and each other, in
-     bf16 and int8, with their launch counts, timings, the
-     ``scaled_dot_product_attention`` yardstick and the bytes bound.
+     tokens, two paged rounds): against their twins and each other (paged
+     equal to dense bit for bit), in bf16 and int8, with their launch
+     counts, device times, the ``scaled_dot_product_attention`` and
+     page gather + SDPA yardsticks and the bytes bound;
+  7. the same kernels on a long pool larger than L2: 32 slots of up to
+     4096 positions (pos drawn from [2048, 4095]) in 16-position pages
+     permuted over a pool of 8192 + 1 pages, at the target's attention
+     widths, bf16 and int8, checked and timed as in phase 6.
+
+The decode kernels, their twins and the yardsticks are timed by device
+time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
+and the time divided by GRAPH_CALLS, so no host work of a wrapper sits in
+the timed window.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last is the contract line {"ok": true, "device": {...}}.  Any
@@ -58,6 +68,10 @@ ATOL_F32, ATOL_BF16, ATOL_INT8_ORACLE = 2e-5, 5e-3, 0.02
 # serving: slots, page size, and the phase-6 prompt lengths / capacity
 SLOTS, PAGE = 4, 16
 LONG_PROMPTS, LONG_CACHE = (17, 1025, 2561, 4001), 4112
+# phase 7: slots, positions per slot, pool pages (+1 trash), pos range
+POOL_SLOTS, POOL_CAP, POOL_PAGES = 32, 4096, 8192
+POOL_POS, POOL_SEED = (2048, 4095), 13
+GRAPH_CALLS = 20                   # calls per CUDA graph in graph_ms
 TPU_SOURCES = {
     "sqs_fused": "src/repro/kernels/sqs_fused.py:118",
     "topk_threshold": "src/repro/kernels/sqs_fused.py:171",
@@ -89,6 +103,37 @@ def cuda_ms(fn, reps=10, warm=2):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls=GRAPH_CALLS, reps=5):
+    """Device time of one call of ``fn``: GRAPH_CALLS calls captured in a
+    CUDA graph (after warm-up on a side stream), the graph replayed
+    between two events, the median of ``reps`` replays over the calls."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / calls)
+    del graph
     return statistics.median(times)
 
 
@@ -291,6 +336,7 @@ def phase_decode_kernels():
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as da, ops, ref
+    from repro_torch.models.attention import page_gather
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4321)
 
@@ -326,8 +372,8 @@ def phase_decode_kernels():
         oracle = float((o8 - ref.gqa_decode_ref(q, kc, vc, pos)).abs().max())
         check(oracle < ATOL_INT8_ORACLE, f"{label}: int8 off the float "
               f"oracle by {oracle:.3g}")
-        tk = cuda_ms(lambda: ops.gqa_decode(q, kc, vc, pos), reps=5)
-        tr = cuda_ms(lambda: ref.gqa_decode_ref(q, kc, vc, pos), reps=5)
+        tk = graph_ms(lambda: ops.gqa_decode(q, kc, vc, pos))
+        tr = graph_ms(lambda: ref.gqa_decode_ref(q, kc, vc, pos))
         print(f"  {label}: max err {errs}; int8 vs float oracle "
               f"{oracle:.3g} (< {ATOL_INT8_ORACLE}); kernel {tk:.4f} ms, "
               f"twin {tr:.4f} ms")
@@ -352,8 +398,9 @@ def phase_decode_kernels():
             pos_l.append(npg * ps - int(rng.integers(1, ps)))
         pt = torch.from_numpy(pt_np).to(dev)
         pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
-        gk = pk[pt.long()].reshape(B, maxp * ps, nkv, hd).contiguous()
-        gv = pv[pt.long()].reshape(B, maxp * ps, nkv, hd).contiguous()
+        def gather(pool):
+            return page_gather(pool, pt.long()).contiguous()
+        gk, gv = gather(pk), gather(pv)
         k8, ks = da.quantize_kv(pk)
         v8, vs = da.quantize_kv(pv)
         atol = ATOL_BF16 if serving else ATOL_F32
@@ -367,14 +414,15 @@ def phase_decode_kernels():
             "int8": (lambda: ref.paged_gqa_decode_ref(q, k8, v8, pt, pos,
                                                       ks, vs), ATOL_F32)})
         dense = ops.gqa_decode(q, gk, gv, pos)
-        e_pd = float((outs["pool"] - dense).abs().max())
-        check(e_pd <= ATOL_F32, f"{label}: paged vs dense kernel {e_pd:.3g}")
-        tk = cuda_ms(lambda: ops.paged_gqa_decode(q, pk, pv, pt, pos),
-                     reps=5)
-        tr = cuda_ms(lambda: ref.paged_gqa_decode_ref(q, pk, pv, pt, pos),
-                     reps=5)
-        print(f"  {label}: max err {errs}; paged vs dense kernel "
-              f"{e_pd:.3g} (<= {ATOL_F32}); kernel {tk:.4f} ms, twin "
+        dense8 = ops.gqa_decode(q, gather(k8), gather(v8), pos, gather(ks),
+                                gather(vs))
+        check(torch.equal(outs["pool"], dense)
+              and torch.equal(outs["int8"], dense8),
+              f"{label}: paged and dense kernels differ on gathered pages")
+        tk = graph_ms(lambda: ops.paged_gqa_decode(q, pk, pv, pt, pos))
+        tr = graph_ms(lambda: ref.paged_gqa_decode_ref(q, pk, pv, pt, pos))
+        print(f"  {label}: max err {errs}; paged equals dense on gathered "
+              f"pages bit for bit (cache and int8); kernel {tk:.4f} ms, twin "
               f"{tr:.4f} ms")
 
 
@@ -679,7 +727,7 @@ def decode_bound(B, nq, nkv, hd, pos, kv_bytes, paged_cols=0, scales=False):
     positions <= pos, their scales, q, pos, the page table) and the f32
     output written once, over device memory; against 4 flops per
     position, query head and hd (two products, f32 outside the tensor
-    cores).  Returns (ms, bound_by)."""
+    cores).  Returns (ms, bound_by, bytes)."""
     n = int(sum(int(p) + 1 for p in pos))
     nbytes = (2 * n * nkv * hd * kv_bytes + (2 * n * nkv * 4 if scales
                                              else 0)
@@ -689,7 +737,7 @@ def decode_bound(B, nq, nkv, hd, pos, kv_bytes, paged_cols=0, scales=False):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), nbytes
 
 
 def phase_served_pools(dev, tc, dc, tp, dp):
@@ -786,49 +834,168 @@ def phase_served_pools(dev, tc, dc, tp, dp):
             f"{e['paged8 vs float']:.3g} (information)")
     # timings at the target's last layer, bf16 and int8
     c = [c for c in cases if c["label"].startswith("target")][-1]
-    B, nq, hd = c["q"].shape
-    nkv, maxp = c["k"].shape[2], c["pt"].shape[1]
-    q, pt = c["q"], c["pt"]
-    lib_fn, lib_how = sdpa_call(q, c["gk"], c["gv"], pos)
-    lib_out = lib_fn()[:, :, 0].float()
-    e_lib = float((lib_out - c["paged"]).abs().max())
-    t = {
-        "paged": cuda_ms(lambda: ops.paged_gqa_decode(q, c["k"], c["v"], pt,
-                                                      pos)),
-        "dense": cuda_ms(lambda: ops.gqa_decode(q, c["gk"], c["gv"], pos)),
-        "paged_twin": cuda_ms(lambda: ref.paged_gqa_decode_ref(
-            q, c["k"], c["v"], pt, pos)),
-        "dense_twin": cuda_ms(lambda: ref.gqa_decode_ref(q, c["gk"], c["gv"],
-                                                         pos)),
-        "paged8": cuda_ms(lambda: ops.paged_gqa_decode(
-            q, c["k8"], c["v8"], pt, pos, c["ks"], c["vs"])),
-        "dense8": cuda_ms(lambda: ops.gqa_decode(
-            q, c["gk8"], c["gv8"], pos, c["gks"], c["gvs"])),
-        "library": cuda_ms(lib_fn),
-    }
-    b_paged = decode_bound(B, nq, nkv, hd, pos.tolist(), 2, paged_cols=maxp)
-    b_dense = decode_bound(B, nq, nkv, hd, pos.tolist(), 2)
-    b_paged8 = decode_bound(B, nq, nkv, hd, pos.tolist(), 1, paged_cols=maxp,
-                            scales=True)
-    print(f"  timings, {c['label']} (B {B}, nq {nq}, nkv {nkv}, hd {hd}, pos "
-          f"{pos.tolist()}, bf16 q and cache): "
-          + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
-          + f"; library = scaled_dot_product_attention over the gathered "
-          f"bf16 cache with the pos mask ({lib_how}), off the paged kernel "
-          f"by {e_lib:.3g}; bound paged {b_paged[0]:.5f} ms, dense "
-          f"{b_dense[0]:.5f} ms, paged int8 {b_paged8[0]:.5f} ms (bytes "
-          f"over {HBM_BYTES_PER_S / 1e12} TB/s)")
+    t, bounds = decode_timings(c["label"], c, pos)
     rows = []
-    for name, key, bound in (("flash_gqa_decode", "dense", b_dense),
-                             ("paged_flash_gqa_decode", "paged", b_paged)):
+    for name, key in (("flash_gqa_decode", "dense"),
+                      ("paged_flash_gqa_decode", "paged")):
+        bound = bounds[key]
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": TPU_SOURCES[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": t[key],
             "plain_ms": t[key + "_twin"], "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": t["library"]})
+            "bound_by": bound[1], "library_ms": t["library"],
+            "share_of_bound": bound[0] / t[key], "int8_ms": t[key + "8"]})
+    rows[1]["gather_library_ms"] = t["gather_library"]
     return rows
+
+
+def decode_timings(label, c, pos):
+    """Device times (graph_ms) of both decode kernels in bf16 and int8,
+    their twins and two yardsticks on one pool ``c``: one
+    scaled_dot_product_attention call over the gathered bf16 cache, and
+    page_gather of K and V + the pos mask + that call (the paged
+    kernel's whole job done by library calls).  Prints achieved GB/s and
+    the share of the bytes bound.  Returns (times, bounds)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import page_gather
+    q, pt = c["q"], c["pt"]
+    ptl = pt.long()
+    B, nq, hd = q.shape
+    nkv, maxp = c["k"].shape[2], pt.shape[1]
+    lib_fn, lib_how = sdpa_call(q, c["gk"], c["gv"], pos)
+    e_lib = float((lib_fn()[:, :, 0].float() - c["paged"]).abs().max())
+
+    def gather_lib():
+        return sdpa_call(q, page_gather(c["k"], ptl), page_gather(c["v"], ptl),
+                         pos)[0]()
+    t = {
+        "paged": graph_ms(lambda: ops.paged_gqa_decode(q, c["k"], c["v"], pt,
+                                                       pos)),
+        "dense": graph_ms(lambda: ops.gqa_decode(q, c["gk"], c["gv"], pos)),
+        "paged8": graph_ms(lambda: ops.paged_gqa_decode(
+            q, c["k8"], c["v8"], pt, pos, c["ks"], c["vs"])),
+        "dense8": graph_ms(lambda: ops.gqa_decode(
+            q, c["gk8"], c["gv8"], pos, c["gks"], c["gvs"])),
+        "paged_twin": graph_ms(lambda: ref.paged_gqa_decode_ref(
+            q, c["k"], c["v"], pt, pos)),
+        "dense_twin": graph_ms(lambda: ref.gqa_decode_ref(q, c["gk"], c["gv"],
+                                                          pos)),
+        "library": graph_ms(lib_fn),
+        "gather_library": graph_ms(gather_lib),
+    }
+    p = pos.tolist()
+    bounds = {"paged": decode_bound(B, nq, nkv, hd, p, 2, paged_cols=maxp),
+              "dense": decode_bound(B, nq, nkv, hd, p, 2),
+              "paged8": decode_bound(B, nq, nkv, hd, p, 1, paged_cols=maxp,
+                                     scales=True),
+              "dense8": decode_bound(B, nq, nkv, hd, p, 1, scales=True)}
+    print(f"  device times ({GRAPH_CALLS} calls per CUDA graph), {label} "
+          f"(B {B}, nq {nq}, nkv {nkv}, hd {hd}, capacity "
+          f"{maxp * c['k'].shape[1]}, pos {p if B <= 8 else 'see above'}, "
+          f"bf16 q; cache bf16 or int8): "
+          + ", ".join(f"{key} {v:.4f} ms" for key, v in t.items())
+          + f"; library = scaled_dot_product_attention over the gathered "
+          f"bf16 cache with the pos mask ({lib_how}), off the paged kernel "
+          f"by {e_lib:.3g}; gather_library = page_gather + mask + that call")
+    for key, (ms, by, nbytes) in bounds.items():
+        print(f"    {key}: bound {ms:.5f} ms ({by}, {nbytes / 1e6:.2f} MB "
+              f"over {HBM_BYTES_PER_S / 1e12} TB/s); {t[key]:.4f} ms = "
+              f"{nbytes / t[key] / 1e6:.1f} GB/s, {ms / t[key]:.3f} of the "
+              f"bound")
+    return t, bounds
+
+
+# ----------------------------------------------------------------------
+# phase 7: the flash-decode kernels on a pool larger than L2
+# ----------------------------------------------------------------------
+def phase_long_pool(dev, tc, rows):
+    """32 slots with pos drawn uniformly from [2048, 4095], 16-position
+    pages permuted over a pool of 8192 + 1 (trash) pages, table entries
+    past a slot's pages on the trash page; the target's attention widths
+    (nq 16, nkv 2, hd 128), bf16 and int8.  Adds the long-pool numbers to
+    the two decode rows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da, ops, ref
+    from repro_torch.models.attention import page_gather
+    nq, nkv, hd = tc.n_heads, tc.n_kv_heads, tc.head_dim
+    rng = np.random.default_rng(POOL_SEED)
+    pos_np = rng.integers(POOL_POS[0], POOL_POS[1] + 1,
+                          POOL_SLOTS).astype(np.int32)
+    maxp = POOL_CAP // PAGE
+    perm = rng.permutation(POOL_PAGES)
+    table = np.full((POOL_SLOTS, maxp), POOL_PAGES, np.int32)
+    used = 0
+    for b, p in enumerate(pos_np):
+        n = int(p) // PAGE + 1
+        table[b, :n] = perm[used:used + n]
+        used += n
+    g = torch.Generator(device=dev).manual_seed(POOL_SEED)
+    shape = (POOL_PAGES + 1, PAGE, nkv, hd)
+    pk = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    pv = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((POOL_SLOTS, nq, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    pt = torch.from_numpy(table).to(dev)
+    pos = torch.from_numpy(pos_np).to(dev)
+    k8, ks = da.quantize_kv(pk)
+    v8, vs = da.quantize_kv(pv)
+
+    def gather(pool):
+        return page_gather(pool, pt.long()).contiguous()
+    c = dict(label="long pool", q=q, k=pk, v=pv, pt=pt, gk=gather(pk),
+             gv=gather(pv), k8=k8, ks=ks, v8=v8, vs=vs, gk8=gather(k8),
+             gv8=gather(v8), gks=gather(ks), gvs=gather(vs))
+    print(f"phase 7: flash-decode kernels on a long pool: {POOL_SLOTS} "
+          f"slots, pos {pos_np.tolist()}, capacity {POOL_CAP}, page {PAGE}, "
+          f"{used} of {POOL_PAGES} pages (+1 trash), pool "
+          f"{2 * pk.numel() * 2 / 1e6:.1f} MB bf16; {used * PAGE} positions")
+    da.reset_launches()
+    c["paged"] = ops.paged_gqa_decode(q, pk, pv, pt, pos)
+    c["dense"] = ops.gqa_decode(q, c["gk"], c["gv"], pos)
+    c["paged8"] = ops.paged_gqa_decode(q, k8, v8, pt, pos, ks, vs)
+    c["dense8"] = ops.gqa_decode(q, c["gk8"], c["gv8"], pos, c["gks"],
+                                 c["gvs"])
+    torch.cuda.synchronize()
+    launches = dict(da.LAUNCHES)
+    print(f"  launches: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"a decode kernel never ran on the long pool: {launches}")
+    twin = ref.gqa_decode_ref(q, c["gk"], c["gv"], pos)
+    twin8 = ref.gqa_decode_ref(q, c["gk8"], c["gv8"], pos, c["gks"],
+                               c["gvs"])
+    e = {"paged": float((c["paged"] - twin).abs().max()),
+         "paged8": float((c["paged8"] - twin8).abs().max()),
+         "paged8 vs float": float((c["paged8"] - twin).abs().max())}
+    for key, tol in (("paged", ATOL_BF16), ("paged8", ATOL_F32),
+                     ("paged8 vs float", ATOL_INT8_ORACLE)):
+        check(e[key] <= tol, f"long pool: {key} error {e[key]:.3g} > {tol}")
+    check(torch.equal(c["paged"], c["dense"])
+          and torch.equal(c["paged8"], c["dense8"]),
+          "long pool: paged and dense kernels differ on gathered pages")
+    check(bool(torch.isfinite(c["paged"]).all()), "long pool: not finite")
+    print(f"  paged vs twin {e['paged']:.3g} (<= {ATOL_BF16}), int8 vs twin "
+          f"{e['paged8']:.3g} (<= {ATOL_F32}), int8 vs the bf16 twin "
+          f"{e['paged8 vs float']:.3g} (< {ATOL_INT8_ORACLE}); paged equals "
+          f"dense bit for bit in bf16 and int8")
+    t, bounds = decode_timings("long pool", c, pos)
+    for r in rows:
+        key = {"flash_gqa_decode": "dense",
+               "paged_flash_gqa_decode": "paged"}.get(r["name"])
+        if key is None:
+            continue
+        r["launches"] += launches[r["name"]]
+        # the dense kernel's output equals the paged one's (checked above)
+        r["max_abs_err"] = max(r["max_abs_err"], e["paged"], e["paged8"])
+        r.update({"long_ms": t[key], "long_plain_ms": t[key + "_twin"],
+                  "long_bound_ms": bounds[key][0],
+                  "long_share_of_bound": bounds[key][0] / t[key],
+                  "long_library_ms": t["library"],
+                  "long_int8_ms": t[key + "8"]})
+    rows[-1]["long_gather_library_ms"] = t["gather_library"]
 
 
 def main():
@@ -868,6 +1035,7 @@ def main():
     for r in rows:
         r["launches"] += serve_launches[r["name"]]
     rows += phase_served_pools(dev, tc, dc, tp, dp)
+    phase_long_pool(dev, tc, rows)
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -148,7 +148,7 @@ def test_wrappers_check_their_operands():
         tda._check(torch.zeros(2, 3, 16), k, k, pos, None, None, 2)
     assert tda._check(q, k, k, pos, None, None, 2) == (2, 4, 16, 2)
     with pytest.raises(ValueError, match="shared memory"):
-        tda._smem_check(8, 128, 512)
+        tda._smem_check(8, 128, 4, 1 << 16, 1)
 
 
 @pytest.fixture
@@ -159,21 +159,48 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _long_pool_case(B, seed):
+    """The long-pool widths of chip_smoke.py phase 7 with fewer slots: pos
+    drawn from [2048, 4095], 16-position pages, 256 per slot, permuted
+    over a pool of B * 256 + 1 pages; entries past a slot's pages on the
+    trash page (the last row)."""
+    ps, maxp, nkv, qpk, hd = 16, 256, 2, 8, 128
+    rng = np.random.default_rng(seed)
+    n_pages = B * maxp
+    q = _normal(rng, (B, nkv * qpk, hd))
+    pk = _normal(rng, (n_pages + 1, ps, nkv, hd))
+    pv = _normal(rng, (n_pages + 1, ps, nkv, hd))
+    pos = rng.integers(2048, 4096, B).astype(np.int32)
+    perm = rng.permutation(n_pages)
+    pt = np.full((B, maxp), n_pages, np.int32)
+    used = 0
+    for b in range(B):
+        n = int(pos[b]) // ps + 1
+        pt[b, :n] = perm[used:used + n]
+        used += n
+    return q, pk, pv, pt, pos
+
+
 @pytest.mark.cuda
 def test_decode_kernels_vs_twins_on_card(cuda_device):
-    q, pk, pv, pt, pos = (torch.from_numpy(x).to(cuda_device) for x in
-                          _pool_case(2, 8, 128, 16, 8, 20, 3))
     tda.reset_launches()
-    out = tops.paged_gqa_decode(q.bfloat16(), pk.bfloat16(), pv.bfloat16(),
-                                pt, pos)
-    r = tref.paged_gqa_decode_ref(q.bfloat16(), pk.bfloat16(),
-                                  pv.bfloat16(), pt, pos)
-    gk = pk[pt.long()].reshape(3, -1, 2, 128).contiguous()
-    gv = pv[pt.long()].reshape(3, -1, 2, 128).contiguous()
-    dense = tops.gqa_decode(q, gk, gv, pos)
-    torch.cuda.synchronize()
-    assert float((out - r).abs().max()) < 5e-3
-    assert float((dense - tref.gqa_decode_ref(q, gk, gv, pos)).abs().max()) \
-        < 2e-5
-    assert tda.LAUNCHES == {"flash_gqa_decode": 1,
-                            "paged_flash_gqa_decode": 1}
+    for case in (_pool_case(2, 8, 128, 16, 8, 20, 3), _long_pool_case(4, 5)):
+        q, pk, pv, pt, pos = (torch.from_numpy(x).to(cuda_device)
+                              for x in case)
+        B, nkv, hd = q.shape[0], pk.shape[2], pk.shape[3]
+        qb, kb, vb = q.bfloat16(), pk.bfloat16(), pv.bfloat16()
+        out = tops.paged_gqa_decode(qb, kb, vb, pt, pos)
+        r = tref.paged_gqa_decode_ref(qb, kb, vb, pt, pos)
+        gk = kb[pt.long()].reshape(B, -1, nkv, hd).contiguous()
+        gv = vb[pt.long()].reshape(B, -1, nkv, hd).contiguous()
+        dense = tops.gqa_decode(qb, gk, gv, pos)
+        gk32 = pk[pt.long()].reshape(B, -1, nkv, hd).contiguous()
+        gv32 = pv[pt.long()].reshape(B, -1, nkv, hd).contiguous()
+        dense32 = tops.gqa_decode(q, gk32, gv32, pos)
+        torch.cuda.synchronize()
+        assert float((out - r).abs().max()) < 5e-3
+        assert torch.equal(out, dense)       # paged == dense, bit for bit
+        assert float((dense32 - tref.gqa_decode_ref(q, gk32, gv32, pos))
+                     .abs().max()) < 2e-5
+    assert tda.LAUNCHES == {"flash_gqa_decode": 4,
+                            "paged_flash_gqa_decode": 2}
