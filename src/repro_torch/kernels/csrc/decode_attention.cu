@@ -44,7 +44,9 @@
 //    block-wide barrier per tile.  Positions past pos (or past the
 //    capacity) are zero-filled, never read: no stale row and no trash
 //    page is touched.  A paged block reads its chunk's page-table entries
-//    into shared memory once.
+//    into shared memory once.  Each thread looks up the source rows of
+//    its copies one tile ahead of issuing them, so the lookups overlap
+//    the math instead of delaying the copies after each barrier.
 //  - Math in f32 on the CUDA cores, online softmax in registers.  Each
 //    lane holds 8 dims of q * scale * log2(e) for all its heads and the
 //    matching 8 dims of their accumulators.  LPR = hd / 8 lanes share a
@@ -268,38 +270,51 @@ decode_split_kernel(const Params p) {
   }
 
   // Each thread copies 16 bytes at column col of rows r0, r0 + RSTEP, ...
-  // of every tile, K and V; threads 0..TILE-1 copy the int8 scales.
-  constexpr int RSTEP = NT / CPR;
+  // of every tile, K and V; threads 0..TILE-1 copy the int8 scales.  The
+  // source offsets of a tile's copies are looked up one tile ahead of its
+  // issue, so the page-table reads overlap the math of the tile before.
+  constexpr int RSTEP = NT / CPR, NCP = TILE / RSTEP;
   const int r0 = tid / CPR, col = (tid % CPR) * 16;
   const size_t rstride = (size_t)p.nkv * ROW;           // bytes per position
   const unsigned char* kb = p.k + (size_t)kvh * ROW + col;
   const unsigned char* vb = p.v + (size_t)kvh * ROW + col;
-  auto issue = [&](int t) {
+  size_t off[NCP], soff = kvh;
+  auto look_up = [&](int t) {
+    const int t0 = c0 + t * TILE;
+#pragma unroll
+    for (int k = 0; k < NCP; ++k) {
+      const int i = t0 + r0 + k * RSTEP;
+      off[k] = i < c_end ? row_of(i) * rstride : 0;
+    }
+    if (QUANT && tid < TILE) soff = t0 + tid < c_end ? row_of(t0 + tid) * p.nkv + kvh : kvh;
+  };
+  auto issue = [&](int t) {                             // after look_up(t)
     if (t < n_tiles) {
       unsigned char* st = smem + (t % STAGES) * STAGE_B;
       const int t0 = c0 + t * TILE;
 #pragma unroll
-      for (int k = 0; k < TILE / RSTEP; ++k) {
-        const int r = r0 + k * RSTEP, i = t0 + r;
-        const bool ok = i < c_end;
-        const size_t off = ok ? row_of(i) * rstride : 0;
-        cp_async16(st + r * ROW + col, kb + off, ok);
-        cp_async16(st + TILE_B + r * ROW + col, vb + off, ok);
+      for (int k = 0; k < NCP; ++k) {
+        const int r = r0 + k * RSTEP;
+        const bool ok = t0 + r < c_end;
+        cp_async16(st + r * ROW + col, kb + off[k], ok);
+        cp_async16(st + TILE_B + r * ROW + col, vb + off[k], ok);
       }
       if (QUANT && tid < TILE) {
         float* sc = reinterpret_cast<float*>(st + 2 * TILE_B);
-        const int i = t0 + tid;
-        const bool ok = i < c_end;
-        const size_t off = ok ? row_of(i) * p.nkv + kvh : kvh;
-        cp_async4(sc + tid, p.ks + off, ok);
-        cp_async4(sc + TILE + tid, p.vs + off, ok);
+        const bool ok = t0 + tid < c_end;
+        cp_async4(sc + tid, p.ks + soff, ok);
+        cp_async4(sc + TILE + tid, p.vs + soff, ok);
       }
     }
     cp_async_commit();
   };
 
 #pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) issue(t);
+  for (int t = 0; t < STAGES - 1; ++t) {
+    look_up(t);
+    issue(t);
+  }
+  look_up(STAGES - 1);
 
   // q * scale * log2(e) for this lane's dims, slot g holding head g ^ own
   // (reduce_scatter); heads past qpk are zero.  acc is in head order.
@@ -326,6 +341,7 @@ decode_split_kernel(const Params p) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     issue(t + STAGES - 1);
+    look_up(t + STAGES);
     const unsigned char* st = smem + (t % STAGES) * STAGE_B;
     const KT* kt = reinterpret_cast<const KT*>(st);
     const KT* vt = reinterpret_cast<const KT*>(st + TILE_B);
