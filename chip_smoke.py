@@ -8,15 +8,19 @@ Phases:
   2. each Hopper kernel against its plain PyTorch twin on the card: the
      SQS kernels over the shapes of the reference's kernel tests plus the
      main path's (4, 151936), with the differing rows counted and
-     classified; the two flash-decode kernels over the reference's
+     classified, and the select's paths (cluster sweeps then compaction
+     on near-uniform rows, never compacting on all-equal rows, the K-SQS
+     index trim on tied logits); the two flash-decode kernels over the reference's
      sweeps in f32, bf16 and int8, paged against dense on gathered
      pages, and the serving shape (nq 16, nkv 2, hd 128, bf16);
   3. the fixed-batch main path through its user entry point
      (``EdgeCloudEngine.run``) at full ``qwen2.5-3b`` width with a
      ``qwen2.5-3b-draft2x`` edge model, bf16 random weights from a seed,
      for ksqs/csqs (codecs v1 and v2), qs and uncompressed, with the
-     kernel launch counts of that run and output checks;
-  4. SQS kernel, twin and library timings at the main path's inputs;
+     kernel launch counts of that run and output checks, and one ksqs
+     draft call under torch.profiler (device-busy share, SQS kernel time);
+  4. SQS kernel, twin and library timings at the main path's inputs, with
+     each kernel's cluster plan and the barriers of each call;
   5. continuous-batching serving (``ServeSession.run_trace``) of one
      Poisson trace at full width: dense lockstep, paged lockstep, paged
      pipelined with speculation, and int8 paged against int8 dense, with
@@ -33,10 +37,12 @@ Phases:
      permuted over a pool of 8192 + 1 pages, at the target's attention
      widths, bf16 and int8, checked and timed as in phase 6.
 
-The decode kernels, their twins and the yardsticks are timed by device
+All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
 and the time divided by GRAPH_CALLS, so no host work of a wrapper sits in
-the timed window.
+the timed window.  The SQS rows also print a one-call event time (one
+event pair around one wrapper call, its host work inside the window), the
+method of the earlier SQS timings.
 
 The second-to-last line of output is one JSON object describing every
 kernel; the last is the contract line {"ok": true, "device": {...}}.  Any
@@ -143,6 +149,23 @@ def near(x, y, k=ULP_RULE):
     x = np.asarray(x, np.float32).astype(np.float64)
     y = np.asarray(y, np.float32)
     return np.abs(x - y) <= k * np.spacing(np.abs(y)).astype(np.float64)
+
+
+def sqs_path(info):
+    """What one row's SQS kernel call ran, from its ``info`` row
+    [cluster barriers, cluster sweeps, buffer size or -1, steps finished in
+    block 0]."""
+    barriers, sweeps, nbuf, steps = (int(v) for v in info)
+    from repro_torch.kernels import sqs_fused as k
+    if nbuf < 0:
+        finish = "never compacted"
+    else:
+        finish = (f"compacted {nbuf} values into block 0, which took "
+                  f"{steps} steps "
+                  + ("in one warp" if nbuf <= k.WARP_MAX else
+                     "in block sweeps"))
+    return (f"{barriers} cluster barriers, {sweeps} cluster sweeps, "
+            f"{finish}")
 
 
 # ----------------------------------------------------------------------
@@ -299,16 +322,48 @@ def phase_kernels():
                       f"torch.topk {tl:.4f} ms")
                 n_bad += nb
     # the +-1 correction at its heaviest: near-uniform rows, beta <= 0 so
-    # K = V and delta = -ell (every increment goes through the select)
-    for B, V in [(4, 151936), (3, 50257)]:
-        lp = logits(B, V, scale=0.01)
+    # K = V and delta = -ell (every increment goes through the select);
+    # the eligible keys exceed the compaction buffer, so the select sweeps
+    # the cluster first (the fallback) and compacts after.  With every
+    # logit equal no sweep narrows [lo, hi): the select never compacts and
+    # the ties come from the last histogram.
+    for B, V, kind in [(4, 151936, "near-uniform"), (3, 50257, "near-uniform"),
+                       (2, 151936, "all-equal")]:
+        lp = (logits(B, V, scale=0.01) if kind == "near-uniform"
+              else pad_logits(torch.zeros((B, V), device=dev))[0])
         beta2 = torch.full((B, 2), -1.0, device=dev)
-        label = f"correction B={B} V={V} near-uniform beta<=0"
+        label = f"correction B={B} V={V} {kind} beta<=0"
         nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0, label)
-        _, _, ks = k.sqs_fused(lp, beta2, inv_temp=1.0, ell=100)
+        info = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+        _, _, ks = k.sqs_fused(lp, beta2, inv_temp=1.0, ell=100, info=info)
+        info = info.tolist()
+        check(all(r[1] > 0 for r in info), f"{label}: the select did not "
+              f"take the cluster sweeps: {info}")
+        if kind == "all-equal":
+            check(all(r[2] == -1 for r in info), f"{label}: compacted {info}")
         print(f"  {label}: K={ks[:, 1].tolist()} sum_b_raw="
-              f"{ks[:, 2].tolist()}; {nd} differing rows, {nb} unexcused")
+              f"{ks[:, 2].tolist()}; {nd} differing rows, {nb} unexcused; "
+              f"row 0: {sqs_path(info[0])}")
         n_bad += nb
+    # K-SQS with K inside a run of tied probabilities: more than K
+    # candidates q >= lo, trimmed to the first K by index across blocks
+    B, V, K = 4, 151936, 64
+    x = torch.round(torch.randn((B, V), generator=gen, device=dev) * 4) / 2
+    lp = pad_logits(x)[0]
+    q = ref.softmax_padded(lp, 1.0)
+    tau = k.topk_threshold(lp, K, inv_temp=1.0)
+    n_cand = (q >= tau[:, 0:1]).sum(-1)
+    label = f"sqs_topk B={B} V={V} K={K} tied logits"
+    nd, nb = compare_sqs(lp, tau, 1.0, 100, K, label,
+                         ref.topk_threshold_ref(q, K))
+    info = torch.zeros((B, 4), dtype=torch.int32, device=dev)
+    k.sqs_fused(lp, tau, inv_temp=1.0, ell=100, exact_k=K, info=info)
+    check(bool((n_cand > K).any()), f"{label}: no row had more than K "
+          f"candidates {n_cand.tolist()}")
+    print(f"  {label}: candidates q >= lo {n_cand.tolist()} trimmed to {K}; "
+          f"{nd} differing rows, {nb} unexcused; row 0: "
+          f"{sqs_path(info[0].tolist())}")
+    n_bad += nb
     check(n_bad == 0, f"{n_bad} kernel rows differ from the twin outside "
           f"the {ULP_RULE}-ulp boundary rule")
 
@@ -519,13 +574,77 @@ def phase_main_path(dev, tc, dc):
         check(bool(torch.isfinite(lg).all() and torch.isfinite(lt).all()),
               f"{method}: NaN/inf logits")
         engines[method] = eng
+    profile_draft(engines["ksqs"])
     return engines, launches
+
+
+SQS_KERNELS = ("sqs_fused_kernel", "topk_threshold_kernel")
+
+
+def profile_draft(eng):
+    """One K-SQS draft call (L_MAX + 1 decode steps with the SQS kernels)
+    under ``torch.profiler``: the device-busy share of the call's wall
+    time and the two SQS kernels' device time.  The call drafts from the
+    edge's committed state and commits nothing (its cache writes land past
+    the committed positions, as edge_logits' do)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    edge = eng.edge
+    args = (edge.x_last, edge.pos, edge.beta, edge.keys)
+    _, _, bare = edge._run_draft(*args)          # warm, unprofiled
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, wall = edge._run_draft(*args)
+    # device time: the kernels' own rows (the CPU ops' rows repeat it), as
+    # the profiler's table totals it
+    dev_us, sqs_us, sqs_n, by_op = 0.0, {}, {}, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False):
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t <= 0:
+            continue
+        dev_us += t
+        by_op.append((t, ev.count, ev.key))
+        for name in SQS_KERNELS:
+            if name in ev.key:
+                sqs_us[name] = sqs_us.get(name, 0.0) + t
+                sqs_n[name] = sqs_n.get(name, 0) + ev.count
+    if dev_us == 0.0:
+        print("  profiler, one ksqs draft call: the profiler saw no device "
+              "time (device-busy share not measured)")
+        return
+    print(f"  profiler, one ksqs draft call ({L_MAX + 1} decode steps, "
+          f"torch.profiler): wall {wall * 1e3:.2f} ms ({bare * 1e3:.2f} ms "
+          f"unprofiled), device busy "
+          f"{dev_us / 1e3:.3f} ms = {dev_us / 1e6 / wall:.3f} of the wall "
+          f"({dev_us / 1e6 / bare:.3f} of the unprofiled wall); "
+          + "; ".join(f"{name} {sqs_us.get(name, 0.0) / 1e3:.4f} ms over "
+                      f"{sqs_n.get(name, 0)} launches"
+                      for name in SQS_KERNELS)
+          + f" = {sum(sqs_us.values()) / dev_us:.4f} of the device time")
+    print("    most device time: " + "; ".join(
+        f"{key[:60]} {t / 1e3:.3f} ms over {n} calls"
+        for t, n, key in sorted(by_op, reverse=True)[:6]))
 
 
 # ----------------------------------------------------------------------
 # phase 4: timings at the main path's inputs
 # ----------------------------------------------------------------------
+def timed(fn):
+    """Device time of one call by CUDA-graph replay, and its one-call
+    event time (host work of the call inside the window)."""
+    return graph_ms(fn), cuda_ms(fn)
+
+
 def phase_timing(engines, launches):
+    """Both SQS kernels at the next draft step's logits of the csqs and
+    ksqs runs: checked against their twins, timed (kernels, twins,
+    torch.topk and softmax + torch.topk by CUDA-graph replay, with the
+    one-call event times beside them), with their cluster plan and the
+    barriers each call took."""
     import torch
     from repro_torch.kernels import ref, sqs_fused as k
     from repro_torch.kernels.ops import pad_logits
@@ -534,32 +653,39 @@ def phase_timing(engines, launches):
         edge = engines[method].edge
         lp = pad_logits(edge_logits(engines[method]))[0]
         B, Vp = lp.shape
+        C, L = k.plan_cluster(Vp)
+        info = torch.zeros((B, 4), dtype=torch.int32, device=lp.device)
         if method == "csqs":
             beta2 = torch.stack([edge.beta, edge.beta], -1).contiguous()
             nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
                                  "sqs_fused at main-path input")
             check(nb == 0, f"csqs main-path input: {nb} rows differ from "
                   f"the twin outside the boundary rule")
-            kb, km, ks = k.sqs_fused(lp, beta2, inv_temp=1.0, ell=100)
+            kb, km, ks = k.sqs_fused(lp, beta2, inv_temp=1.0, ell=100,
+                                     info=info)
             rb, rm, rs = ref.sqs_fused_ref(lp, beta2, inv_temp=1.0, ell=100)
             err = float((kb - rb).abs().max().item())
-            t = cuda_ms(lambda: k.sqs_fused(lp, beta2, inv_temp=1.0,
-                                            ell=100))
-            tr = cuda_ms(lambda: ref.sqs_fused_ref(lp, beta2, inv_temp=1.0,
-                                                   ell=100))
+            t, t1 = timed(lambda: k.sqs_fused(lp, beta2, inv_temp=1.0,
+                                              ell=100))
+            tr, tr1 = timed(lambda: ref.sqs_fused_ref(lp, beta2, inv_temp=1.0,
+                                                      ell=100))
             nbytes = B * Vp * (4 + 8) + B * (8 + 16)
-            corr = bool((ks[:, 2] != 100).any())
-            # softmax 4, support 2, rounding 4, zeta 2; 40 bisection
-            # compares + the tie pass when the +-1 fix runs
-            nops = B * Vp * (12 + (41 if corr else 0))
+            # the function's work: softmax (scale, subtract, exp, sum,
+            # divide) and the support test on every entry; rounding (divide,
+            # scale, add, floor, zeta) on the support; the 40-step select
+            # over the eligible keys where sum b != ell
+            K = ks[:, 1].tolist()
+            corr = [int(v) != 100 for v in ks[:, 2].tolist()]
+            nops = B * Vp * 7 + sum(5 * kr + (40 * kr if c else 0)
+                                    for kr, c in zip(K, corr))
             print(f"  sqs_fused at main-path input (csqs, B={B}, Vp={Vp}, "
-                  f"K={ks[:, 1].tolist()}, sum_b_raw={ks[:, 2].tolist()}): "
-                  f"{nd} rows differ from the twin, {nb} unexcused; "
-                  f"kernel {t:.4f} ms, twin {tr:.4f} ms")
-            out.append(("sqs_fused", t, tr, None, err, nbytes, nops))
+                  f"K={[int(v) for v in K]}, sum_b_raw={ks[:, 2].tolist()}):"
+                  f" {nd} rows differ from the twin, {nb} unexcused")
+            rows = [("sqs_fused", t, t1, tr, tr1, None, None, None, err,
+                     nbytes, nops, info.tolist())]
         else:
             it = 1.0
-            tau = k.topk_threshold(lp, 64, inv_temp=it)
+            tau = k.topk_threshold(lp, 64, inv_temp=it, info=info)
             q = ref.softmax_padded(lp, it)
             tau_r = ref.topk_threshold_ref(q, 64)
             err = float((tau - tau_r).abs().max().item())
@@ -567,31 +693,54 @@ def phase_timing(engines, launches):
                                  "sqs_topk at main-path input", tau_r)
             check(nb == 0, f"ksqs main-path input: {nb} rows differ from "
                   f"the twin outside the boundary rule")
-            t = cuda_ms(lambda: k.topk_threshold(lp, 64, inv_temp=it))
-            tr = cuda_ms(lambda: ref.topk_threshold_ref(
+            t, t1 = timed(lambda: k.topk_threshold(lp, 64, inv_temp=it))
+            tr, tr1 = timed(lambda: ref.topk_threshold_ref(
                 ref.softmax_padded(lp, it), 64))
-            tl = cuda_ms(lambda: torch.topk(q, 64, dim=-1))
+            tl, tl1 = timed(lambda: torch.topk(q, 64, dim=-1))
+            tsl, _ = timed(lambda: torch.topk(ref.softmax_padded(lp, it), 64,
+                                              dim=-1))
             nbytes = B * Vp * 4 + B * 8
-            nops = B * Vp * (4 + 40)      # softmax, 40 compares
+            # softmax (5 a entry) and one compare a entry: a selection
+            # needs to look at every value once
+            nops = B * Vp * 6
             print(f"  topk_threshold at main-path input (ksqs, B={B}, "
                   f"Vp={Vp}, K=64): tau differs from the twin by {err:.3g}, "
-                  f"sqs {nd} rows differ, {nb} unexcused; "
-                  f"kernel {t:.4f} ms, twin {tr:.4f} ms, "
-                  f"torch.topk {tl:.4f} ms")
-            out.append(("topk_threshold", t, tr, tl, err, nbytes, nops))
-    rows = []
-    for name, t, tr, tl, err, nbytes, nops in out:
+                  f"sqs {nd} rows differ, {nb} unexcused")
+            rows = [("topk_threshold", t, t1, tr, tr1, tl, tl1, tsl, err,
+                     nbytes, nops, info.tolist())]
+        out += rows
+        name = rows[0][0]
+        print(f"    {name}: cluster of {C} blocks a row, slices of {L} "
+              f"entries, {k.smem_bytes(C, L)} B of dynamic shared memory a "
+              f"block; per row: " + " | ".join(sqs_path(r)
+                                                for r in info.tolist()))
+    result = []
+    for (name, t, t1, tr, tr1, tl, tl1, tsl, err, nbytes, nops,
+         info) in out:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_FLOPS * 1e3
-        rows.append({
+        bound = max(t_bytes, t_ops)
+        print(f"  {name}: device time {t:.4f} ms (CUDA graph of "
+              f"{GRAPH_CALLS} calls), one call {t1:.4f} ms (event pair, "
+              f"host work inside); twin {tr:.4f} ms (graph), {tr1:.4f} ms "
+              f"(one call); bound {bound:.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+              f"{nbytes / 1e6:.2f} MB, {nops / 1e6:.2f} M operations), "
+              f"{bound / t:.3f} of it"
+              + (f"; torch.topk {tl:.4f} ms (graph), {tl1:.4f} ms (one "
+                 f"call); softmax_padded + torch.topk {tsl:.4f} ms (graph)"
+                 if tl is not None else ""))
+        result.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sqs_fused.cu",
             "replaces": TPU_SOURCES[name], "launches": launches[name],
             "max_abs_err": err, "ms": t, "plain_ms": tr,
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": tl})
-    return rows
+            "library_ms": tl, "one_call_ms": t1, "plain_one_call_ms": tr1,
+            "library_one_call_ms": tl1, "softmax_topk_ms": tsl,
+            "cluster_barriers": [r[0] for r in info]})
+    return result
 
 
 # ----------------------------------------------------------------------

@@ -135,3 +135,16 @@ def test_kernels_vs_twin_on_card(cuda_device, B, V):
     tau = tk.topk_threshold(lp, 64, inv_temp=1.0)
     r = tops.sqs_topk(logits, 64)
     assert (r.K == 64).all() and (tau[:, 0] <= tau[:, 1]).all()
+    # K-SQS through the kernels: K == exact_k, sum b == ell
+    b, m, s = tk.sqs_fused(lp, tau, inv_temp=1.0, ell=100, exact_k=64)
+    assert (s[:, 1] == 64).all() and (m.sum(-1) == 64).all()
+    assert (b.sum(-1) == 100).all()
+    # near-uniform rows with beta <= 0: K = V, the select sweeps the
+    # cluster before it compacts
+    near = tops.pad_logits(torch.randn((B, V), generator=gen,
+                                       device=cuda_device) * 0.01)[0]
+    low = torch.full((B, 2), -1.0, device=cuda_device)
+    b, m, s = tk.sqs_fused(near, low, inv_temp=1.0, ell=100)
+    rb, rm, rs = tref.sqs_fused_ref(near, low, inv_temp=1.0, ell=100)
+    assert (b.sum(-1) == 100).all() and torch.equal(m, rm)
+    assert torch.equal(s[:, 1], rs[:, 1]) and torch.equal(s[:, 2], rs[:, 2])
