@@ -10,9 +10,12 @@ Phases:
      main path's (4, 151936), with the differing rows counted and
      classified, and the select's paths (cluster sweeps then compaction
      on near-uniform rows, never compacting on all-equal rows, the K-SQS
-     index trim on tied logits); the two flash-decode kernels over the reference's
-     sweeps in f32, bf16 and int8, paged against dense on gathered
-     pages, and the serving shape (nq 16, nkv 2, hd 128, bf16);
+     index trim on tied logits), and at the vocabularies of the other
+     dense configs (granite-3-8b's 49155, padded to 49280; stablelm-12b's
+     100352; deepseek-7b's 102400); the two flash-decode kernels over
+     the reference's sweeps in f32, bf16 and int8, paged against dense
+     on gathered pages, and the serving shape (nq 16, nkv 2, hd 128,
+     bf16);
   3. the fixed-batch main path through its user entry point
      (``EdgeCloudEngine.run``) at full ``qwen2.5-3b`` width with a
      ``qwen2.5-3b-draft2x`` edge model, bf16 random weights from a seed,
@@ -35,7 +38,31 @@ Phases:
   7. the same kernels on a long pool larger than L2: 32 slots of up to
      4096 positions (pos drawn from [2048, 4095]) in 16-position pages
      permuted over a pool of 8192 + 1 pages, at the target's attention
-     widths, bf16 and int8, checked and timed as in phase 6.
+     widths, bf16 and int8, checked and timed as in phase 6;
+  8. two processes on the card: ``python -m repro_torch.launch.cloud``
+     as a child process, and an ``EdgeClient`` in this one serving a
+     seeded 2-cell Poisson trace at full ``qwen2.5-3b`` width, C-SQS,
+     lockstep with codec v1 and verdict batching, then pipelined with
+     codec v2 and speculation, obs on both legs: the streams equal the
+     in-process simulator's on the same weights, with the measured RPC
+     round (mean, p99), the server's t_llm, the measured makespan beside
+     the simulator's modeled one and the server's counters (0 wire
+     decode errors);
+  9. the serving entry point (``repro_torch.launch.serve.main``) with
+     ``--transport tcp --trace-out --metrics-out`` against the same
+     server, lockstep: the Theorem-1 decomposition must reconcile and
+     the modeled and wall-clock spans be present; then the server is
+     sent SIGTERM and must print its shutdown line and exit 0;
+ 10. ``qwen2-moe-a2.7b`` at full width (24 layers, 60 routed top-4 + 4
+     shared experts, ~14.3 B parameters) with its 2x draft, after the
+     qwen2.5-3b models are freed: fixed-batch K-SQS and C-SQS rounds at
+     the phase-3 settings, both SQS kernels against their twins at the
+     draft's next-step logits, a short trace served lockstep and
+     pipelined with equal streams.
+
+Every phase that drives a path sets the kernels' launch counts to 0
+just before it and reads them just after; the SQS rows of the kernels
+line add the launches of phases 3, 5, 8, 9 and 10.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -51,11 +78,13 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -78,6 +107,11 @@ LONG_PROMPTS, LONG_CACHE = (17, 1025, 2561, 4001), 4112
 POOL_SLOTS, POOL_CAP, POOL_PAGES = 32, 4096, 8192
 POOL_POS, POOL_SEED = (2048, 4095), 13
 GRAPH_CALLS = 20                   # calls per CUDA graph in graph_ms
+# phase 2: the dense configs whose vocabularies the SQS kernels also see
+DENSE_VOCAB_ARCHS = ("granite-3-8b", "stablelm-12b", "deepseek-7b")
+# phases 8-9: two-process serving, 2 cells over the phase-5 slots
+TCP_CELLS = 2
+MOE_ARCH = "qwen2-moe-a2.7b"
 TPU_SOURCES = {
     "sqs_fused": "src/repro/kernels/sqs_fused.py:118",
     "topk_threshold": "src/repro/kernels/sqs_fused.py:171",
@@ -368,6 +402,46 @@ def phase_kernels():
           f"the {ULP_RULE}-ulp boundary rule")
 
 
+def phase_kernels_vocabularies():
+    """Both SQS kernels against their twins at the vocabularies of the
+    three other dense configs (49155 pads to 49280: the kernels see -inf
+    padding), C-SQS at two temperatures and K-SQS at two K."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ref, sqs_fused as k
+    from repro_torch.kernels.ops import pad_logits
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    t0 = time.perf_counter()
+    n_bad = 0
+    print("phase 2: SQS kernels vs plain twins at the other dense configs' "
+          "vocabularies")
+    for name in DENSE_VOCAB_ARCHS:
+        V = configs.get_config(name).vocab
+        lp = pad_logits(torch.randn((BATCH, V), generator=gen, device=dev)
+                        * 3.0)[0]
+        Vp = lp.shape[1]
+        for temp in (0.5, 1.0):
+            beta2 = torch.full((BATCH, 2), 2e-3, device=dev)
+            nd, nb = compare_sqs(lp, beta2, 1.0 / temp, 100, 0,
+                                 f"sqs_threshold {name} V={V} T={temp}")
+            print(f"  sqs_threshold {name} B={BATCH} V={V} Vp={Vp} "
+                  f"T={temp}: {nd} differing rows, {nb} unexcused")
+            n_bad += nb
+        for K in (8, 64):
+            tau = k.topk_threshold(lp, K, inv_temp=1.0)
+            tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), K)
+            nd, nb = compare_sqs(lp, tau, 1.0, 100, K,
+                                 f"sqs_topk {name} V={V} K={K}", tau_r)
+            print(f"  sqs_topk {name} B={BATCH} V={V} Vp={Vp} K={K}: tau "
+                  f"differs from twin in {int((tau != tau_r).any(-1).sum())}"
+                  f" rows; sqs {nd} differing rows, {nb} unexcused")
+            n_bad += nb
+    check(n_bad == 0, f"{n_bad} kernel rows differ from the twin outside "
+          f"the {ULP_RULE}-ulp boundary rule at the other vocabularies")
+    print(f"  phase 2 vocabularies: {time.perf_counter() - t0:.1f} s")
+
+
 def decode_case(label, run, twins):
     """Run kernel calls ``run`` -> dict of outputs, hold each against
     its twin with its tolerance; ``twins``: name -> (twin fn, atol).
@@ -581,6 +655,24 @@ def phase_main_path(dev, tc, dc):
 SQS_KERNELS = ("sqs_fused_kernel", "topk_threshold_kernel")
 
 
+def device_ops(prof):
+    """Device time (µs) of a ``torch.profiler`` run and its (µs, calls,
+    name) rows: the kernels' own rows (the CPU ops' rows repeat them), as
+    the profiler's table totals them."""
+    import torch
+    dev_us, by_op = 0.0, []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(ev, "is_user_annotation", False):
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0:
+            dev_us += t
+            by_op.append((t, ev.count, ev.key))
+    return dev_us, by_op
+
+
 def profile_draft(eng):
     """One K-SQS draft call (L_MAX + 1 decode steps with the SQS kernels)
     under ``torch.profiler``: the device-busy share of the call's wall
@@ -595,23 +687,13 @@ def profile_draft(eng):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = edge._run_draft(*args)
-    # device time: the kernels' own rows (the CPU ops' rows repeat it), as
-    # the profiler's table totals it
-    dev_us, sqs_us, sqs_n, by_op = 0.0, {}, {}, []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA \
-                or getattr(ev, "is_user_annotation", False):
-            continue
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0.0))
-        if t <= 0:
-            continue
-        dev_us += t
-        by_op.append((t, ev.count, ev.key))
+    dev_us, by_op = device_ops(prof)
+    sqs_us, sqs_n = {}, {}
+    for t, n, key in by_op:
         for name in SQS_KERNELS:
-            if name in ev.key:
+            if name in key:
                 sqs_us[name] = sqs_us.get(name, 0.0) + t
-                sqs_n[name] = sqs_n.get(name, 0) + ev.count
+                sqs_n[name] = sqs_n.get(name, 0) + n
     if dev_us == 0.0:
         print("  profiler, one ksqs draft call: the profiler saw no device "
               "time (device-busy share not measured)")
@@ -1147,6 +1229,346 @@ def phase_long_pool(dev, tc, rows):
     rows[-1]["long_gather_library_ms"] = t["gather_library"]
 
 
+# ----------------------------------------------------------------------
+# phases 8-9: two processes on the card
+# ----------------------------------------------------------------------
+def start_cloud(tmp, dev):
+    """``python -m repro_torch.launch.cloud`` on ``dev`` (the card) as a
+    child process, its output in a file; returns (process, port, log
+    path)."""
+    from repro_torch.serve.net import wait_port_file
+    port_file = os.path.join(tmp, "cloud.port")
+    log_path = os.path.join(tmp, "cloud.log")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.cloud", "--device",
+             dev.type, "--port", "0", "--port-file", port_file],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+    try:
+        port = wait_port_file(port_file, timeout_s=180.0)
+    except TimeoutError as e:
+        proc.kill()
+        proc.wait()
+        with open(log_path) as f:
+            raise CheckFailed(f"the cloud server did not start: {e}; its "
+                              f"output: {f.read()[-2000:]}") from e
+    check(proc.poll() is None, "the cloud server exited after starting")
+    return proc, port, log_path
+
+
+def stop_cloud(proc, log_path):
+    """SIGTERM the server; it must print its shutdown line and exit 0.
+    Returns the shutdown line."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise CheckFailed("the cloud server ignored SIGTERM")
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    down = [ln for ln in lines if ln.startswith("[cloud] shutting down "
+                                                "(SIGTERM)")]
+    check(rc == 0 and len(down) == 1, f"cloud server exit {rc}, output "
+          f"tail {lines[-5:]}")
+    return down[0]
+
+
+def tcp_leg(label, dev, tc, dc, tp, dp, port, pipeline, codec, batch,
+            trace_cfg):
+    """The in-process simulator and an EdgeClient against the cloud
+    process on one seeded trace, obs on both legs; the streams must be
+    equal.  Returns (SQS launches of the tcp run, numbers to print)."""
+    import numpy as np
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig)
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.obs import Obs, span_names_by_clock
+    from repro_torch.serve import (EdgeClient, ServeConfig, ServeSession,
+                                   TraceConfig, poisson_trace)
+    method = MethodConfig("csqs")
+    ecfg = EngineConfig(L_max=L_MAX, wire_codec=codec)
+    serve_kw = dict(max_batch=SLOTS, cache_len=48, n_cells=TCP_CELLS,
+                    pipeline=pipeline, verdict_batch=batch)
+    obs = Obs.on()
+    t0 = time.perf_counter()
+    sim = ServeSession(
+        EdgeCloudEngine(dc, dp, tc, tp, method, ecfg, seed=0, device=dev),
+        ServeConfig(t_slm_s=0.05, t_llm_s=0.03, **serve_kw), obs=obs) \
+        .run_trace(poisson_trace(TraceConfig(**trace_cfg)))
+    t_sim = time.perf_counter() - t0
+    client = EdgeClient(dc, dp, method, ecfg, ServeConfig(**serve_kw),
+                        arch=tc.name, smoke=False, host="127.0.0.1",
+                        port=port, seed=0, obs=obs, device=dev,
+                        session_id=f"chip-smoke-{pipeline}-{codec}")
+    k.reset_launches()
+    t0 = time.perf_counter()
+    with client:
+        rep = client.run_trace(poisson_trace(TraceConfig(**trace_cfg)))
+    t_tcp = time.perf_counter() - t0
+    launches = dict(k.LAUNCHES)
+    sim_streams = {r.rid: tuple(r.tokens) for r in sim.requests}
+    check(rep.n_finished == trace_cfg["n_requests"],
+          f"{label}: {rep.n_finished} finished")
+    check(rep.streams() == sim_streams, f"{label}: tcp streams differ from "
+          f"the simulator's")
+    check(launches["sqs_fused"] > 0, f"{label}: the edge never launched "
+          f"sqs_fused: {launches}")
+    names = span_names_by_clock(obs.tracer.chrome_trace())
+    check({"draft", "uplink", "verify", "downlink"} <= names["modeled"]
+          and {"draft", "verify_rpc"} <= names["wall"],
+          f"{label}: spans {names}")
+    c = rep.cloud_stats["counters"]
+    check(c.get("cloud.wire_decode_errors", 0) == 0,
+          f"{label}: wire decode errors {c}")
+    rpc = np.asarray(client._rpc_s)
+    print(f"  {label}: streams equal the simulator's ({len(sim_streams)} "
+          f"requests, {sum(map(len, sim_streams.values()))} tokens); "
+          f"launches {launches}; sim {t_sim:.1f} s wall, tcp "
+          f"{t_tcp:.1f} s wall")
+    print(f"    measured RPC round mean {rpc.mean() * 1e3:.2f} ms, p50 "
+          f"{np.percentile(rpc, 50) * 1e3:.2f} ms, p99 "
+          f"{np.percentile(rpc, 99) * 1e3:.2f} ms over {rpc.size}; server "
+          f"t_llm mean {rep.t_llm_s['mean'] * 1e3:.2f} ms; edge t_slm mean "
+          f"{rep.t_slm_s['mean'] * 1e3:.2f} ms; makespan measured "
+          f"{rep.makespan_s:.3f} s vs simulator (modeled) "
+          f"{sim.makespan_s:.3f} s; cloud verify_rpcs "
+          f"{c.get('cloud.verify_rpcs', 0)}, wire_decode_errors "
+          f"{c.get('cloud.wire_decode_errors', 0)}; spec hits "
+          f"{rep.n_spec_hits} misses {rep.n_spec_misses}")
+    return launches
+
+
+def phase_tcp(dev, tc, dc, tp, dp, tmp):
+    """Phase 8 (two processes, both legs) then phase 9 (the serving entry
+    point with --transport tcp --trace-out --metrics-out against the same
+    server); SIGTERM last.  Returns the SQS launches of the tcp runs."""
+    import json as _json
+    from repro_torch.launch import serve as launch_serve
+    t0 = time.perf_counter()
+    proc, port, log_path = start_cloud(tmp, dev)
+    try:
+        print(f"phase 8: two processes on the card, {tc.name} <- {dc.name}, "
+              f"csqs, {SLOTS} slots in {TCP_CELLS} cells; cloud server pid "
+              f"{proc.pid} on port {port} (up in "
+              f"{time.perf_counter() - t0:.1f} s)")
+        trace = dict(n_requests=6, rate_rps=4.0, prompt_len=PROMPT_LEN,
+                     min_new_tokens=8, max_new_tokens=12, vocab=tc.vocab,
+                     seed=5, cells=TCP_CELLS)
+        launches = {}
+        for label, pipeline, codec, batch in (
+                ("lockstep v1 + verdict batching", "lockstep", "v1", True),
+                ("pipelined v2 + speculation", "pipelined", "v2", False)):
+            got = tcp_leg(label, dev, tc, dc, tp, dp, port, pipeline, codec,
+                          batch, trace)
+            for name, n in got.items():
+                launches[name] = launches.get(name, 0) + n
+        print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        trace_out = os.path.join(tmp, "trace.json")
+        metrics_out = os.path.join(tmp, "metrics.json")
+        print(f"phase 9: repro_torch.launch.serve --trace --transport tcp "
+              f"--trace-out --metrics-out at full width, lockstep csqs "
+              f"(Theorem-1 decomposition on), against the same server")
+        from repro_torch.kernels import sqs_fused as k
+        k.reset_launches()
+        try:
+            launch_serve.main([
+                "--arch", tc.name, "--device", dev.type, "--trace",
+                "--transport", "tcp",
+                "--cloud-port", str(port), "--pipeline", "lockstep",
+                "--n-requests", "4", "--rate", "4", "--prompt-len",
+                str(PROMPT_LEN), "--min-new-tokens", "6",
+                "--max-new-tokens", "10", "--max-batch", str(SLOTS),
+                "--L-max", str(L_MAX), "--cells", str(TCP_CELLS),
+                "--trace-out", trace_out, "--metrics-out", metrics_out])
+        except SystemExit as e:
+            raise CheckFailed(f"phase 9: the serving entry point exited "
+                              f"{e.code}") from e
+        for name, n in k.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + n
+        check(k.LAUNCHES["sqs_fused"] > 0, "phase 9 never launched sqs_fused")
+        with open(metrics_out) as f:
+            decomp = _json.load(f)["decomp"]
+        rounds = [r for r in decomp["rounds"] if "bound" in r]
+        err = max(abs(r["mismatch"] + r["dropped"] + r["lattice"]
+                      - r["bound"]) for r in rounds)
+        check(err <= 1e-4 and all(r["exact"] <= r["bound"] + 1e-4
+                                  for r in rounds),
+              f"phase 9: decomposition does not reconcile ({err:.3g})")
+        cov = decomp["coverage"]
+        print(f"  phase 9: {len(rounds)} rounds reconcile, max |mismatch + "
+              f"dropped + lattice - bound| {err:.3g}; C-SQS coverage: mean "
+              f"dropped mass {cov['mean_dropped']:.4g} vs alpha "
+              f"{cov['alpha']:.4g} over {cov['n_positions']} positions, "
+              f"Theorem-2 bound {cov['thm2_bound']:.4g} (within: "
+              f"{cov['within_thm2']}), beta in [{cov['beta_min']:.4g}, "
+              f"{cov['beta_max']:.4g}]; launches {dict(k.LAUNCHES)}; "
+              f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        if proc.poll() is None:
+            down = stop_cloud(proc, log_path)
+            print(f"  {down}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 10: the MoE family at full width
+# ----------------------------------------------------------------------
+def profile_verify(eng):
+    """One verify forward of the target (an (L_MAX + 1)-token extend over
+    the batch, as ``CloudVerifyEngine`` runs it) under ``torch.profiler``:
+    its wall, the device-busy share, and the device time beside the floor
+    of reading every weight once at the memory rate.  The extend writes
+    past the committed positions and commits nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_mod
+    cloud = eng.cloud
+    toks = cloud.x_last[:, None].expand(-1, L_MAX + 1).contiguous()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_mod.extend_step(cloud.model, toks, cloud.tcache, cloud.pos)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    run()
+    bare = run()                                  # warm, unprofiled
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    dev_us, by_op = device_ops(prof)
+    wbytes = sum(p.numel() * p.element_size()
+                 for p in cloud.model.parameters())
+    floor = wbytes / HBM_BYTES_PER_S * 1e3
+    if dev_us == 0.0:
+        print("  profiler, one verify forward: the profiler saw no device "
+              f"time (not measured); unprofiled wall {bare * 1e3:.2f} ms")
+        return
+    bmm = sum(t for t, _, key in by_op if "gemm" in key.lower()
+              or "nvjet" in key.lower())
+    print(f"  profiler, one verify forward (B {toks.shape[0]}, "
+          f"{toks.shape[1]} tokens a row, torch.profiler): wall "
+          f"{wall * 1e3:.2f} ms ({bare * 1e3:.2f} ms unprofiled), device "
+          f"busy {dev_us / 1e3:.3f} ms = {dev_us / 1e6 / bare:.3f} of the "
+          f"unprofiled wall; GEMM kernels {bmm / 1e3:.3f} ms; floor of "
+          f"reading the {wbytes / 1e9:.2f} GB of weights once "
+          f"{floor:.2f} ms (device time {dev_us / 1e3 / floor:.2f}x it)")
+    print("    most device time: " + "; ".join(
+        f"{key[:60]} {t / 1e3:.3f} ms over {n} calls"
+        for t, n, key in sorted(by_op, reverse=True)[:6]))
+
+def phase_moe(dev):
+    """qwen2-moe-a2.7b at full width (24 layers, 60 routed top-4 + 4
+    shared experts, depth not cut) with its 2x draft, seeded random bf16
+    weights: fixed-batch K-SQS and C-SQS rounds at the phase-3 settings,
+    both SQS kernels held against their twins at the draft's next-step
+    logits, and a short trace served lockstep and pipelined with equal
+    streams.  Returns the SQS launches of the path."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig, summarize)
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ref, sqs_fused as k
+    from repro_torch.kernels.ops import pad_logits
+    t0 = time.perf_counter()
+    tc = configs.get_config(MOE_ARCH)
+    dc = configs.draft_variant(tc, 2)
+    tp = seeded_model(tc, 1, dev)
+    dp = seeded_model(dc, 2, dev)
+    torch.cuda.synchronize()
+    n_t = sum(p.numel() for p in tp.parameters())
+    n_d = sum(p.numel() for p in dp.parameters())
+    print(f"phase 10: {tc.name} ({tc.n_layers} layers, d {tc.d_model}, "
+          f"{tc.n_experts} routed top-{tc.moe_top_k} + "
+          f"{tc.n_shared_experts} shared experts of {tc.d_expert}; "
+          f"{n_t / 1e9:.3f} B params) <- {dc.name} ({dc.n_layers} layers, d "
+          f"{dc.d_model}, experts of {dc.d_expert}; {n_d / 1e9:.3f} B "
+          f"params), {tp.dtype} weights built in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    data = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77))
+    prompts = data.sample(BATCH, PROMPT_LEN)[:, :-1]
+    launches = {name: 0 for name in k.LAUNCHES}
+    engines = {}
+    for method in ("ksqs", "csqs"):
+        eng = EdgeCloudEngine(dc, dp, tc, tp, MethodConfig(method, K=64,
+                                                           ell=100),
+                              EngineConfig(L_max=L_MAX), seed=0, device=dev)
+        k.reset_launches()
+        t1 = time.perf_counter()
+        rounds, toks = eng.run(prompts, ROUNDS)
+        got = dict(k.LAUNCHES)
+        steps = ROUNDS * (L_MAX + 1)
+        want = {"sqs_fused": steps,
+                "topk_threshold": steps if method == "ksqs" else 0}
+        check(got == want, f"moe {method}: launches {got} != {want}")
+        for name in launches:
+            launches[name] += got[name]
+        for row in toks:
+            check(len(row) >= ROUNDS and all(0 <= t < tc.vocab for t in row),
+                  f"moe {method}: tokens {row}")
+        for r in rounds:
+            for data_ in r["packed"].values():
+                p = eng.fmt.unpack_draft(data_)
+                check(all(sum(c) == 100 for c in p.counts),
+                      f"moe {method}: transmitted sum b != ell")
+        s = summarize(rounds)
+        print(f"  {method}/v1: {ROUNDS} rounds in "
+              f"{time.perf_counter() - t1:.1f} s; mean K {s['mean_K']:.1f}; "
+              f"accept rate {s['accept_rate']:.3f}; launches {got}")
+        print("    t_slm ms " + " ".join(f"{r['t_slm'] * 1e3:.2f}"
+                                           for r in rounds)
+              + " | t_llm ms " + " ".join(f"{r['t_llm'] * 1e3:.2f}"
+                                          for r in rounds))
+        engines[method] = eng
+    profile_verify(engines["csqs"])
+    # both SQS kernels against their twins at the draft's next-step logits
+    for method, eng in engines.items():
+        lg = edge_logits(eng)
+        check(bool(torch.isfinite(lg).all()), f"moe {method}: logits")
+        lp = pad_logits(lg)[0]
+        if method == "csqs":
+            beta2 = torch.stack([eng.edge.beta, eng.edge.beta], -1) \
+                .contiguous()
+            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
+                                 "moe sqs_fused at the draft's logits")
+        else:
+            tau = k.topk_threshold(lp, 64, inv_temp=1.0)
+            tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), 64)
+            nd, nb = compare_sqs(lp, tau, 1.0, 100, 64,
+                                 "moe sqs_topk at the draft's logits", tau_r)
+        check(nb == 0, f"moe {method}: {nb} rows differ from the twin "
+              f"outside the boundary rule")
+        print(f"  {method} kernels at the draft's next-step logits (B="
+              f"{lp.shape[0]}, Vp={lp.shape[1]}): {nd} rows differ from the "
+              f"twin, {nb} unexcused")
+    del engines, eng
+    trace = dict(n_requests=4, rate_rps=4.0, prompt_len=PROMPT_LEN,
+                 min_new_tokens=6, max_new_tokens=10, vocab=tc.vocab, seed=5)
+    k.reset_launches()
+    t1 = time.perf_counter()
+    lock = serve_run("moe dense lockstep", dc, dp, tc, tp, dev, trace)
+    pipe = serve_run("moe dense pipelined + speculation", dc, dp, tc, tp,
+                     dev, trace, pipeline="pipelined")
+    check(lock == pipe, "moe: pipelined streams differ from lockstep")
+    check(k.LAUNCHES["sqs_fused"] > 0, "moe serving never launched sqs_fused")
+    for name, n in k.LAUNCHES.items():
+        launches[name] += n
+    print(f"  moe streams equal across lockstep and pipelined: {len(lock)} "
+          f"requests; serving launches {dict(k.LAUNCHES)}; "
+          f"{time.perf_counter() - t1:.1f} s")
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1168,6 +1590,7 @@ def main():
                                        for lib in libs)
           + f" in {time.perf_counter() - t0:.1f} s")
     phase_kernels()
+    phase_kernels_vocabularies()
     phase_decode_kernels()
     from repro_torch import configs
     dev = torch.device("cuda")
@@ -1185,6 +1608,16 @@ def main():
         r["launches"] += serve_launches[r["name"]]
     rows += phase_served_pools(dev, tc, dc, tp, dp)
     phase_long_pool(dev, tc, rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        tcp_launches = phase_tcp(dev, tc, dc, tp, dp, tmp)
+    del tp, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    moe_launches = phase_moe(dev)
+    for r in rows:
+        r["launches"] += (tcp_launches.get(r["name"], 0)
+                          + moe_launches.get(r["name"], 0))
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

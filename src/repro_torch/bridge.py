@@ -10,7 +10,10 @@ only and imports nothing of the JAX package.
 ``init_params`` draws the distributions of ``repro.models.layers.
 dense_init`` from an explicit ``torch.Generator`` (normal x 1/sqrt(fan_in)
 for matrices, ones for norms, zeros for biases) — used at full width,
-where no JAX runs.
+where no JAX runs.  ``seeded_model`` draws them from a generator seeded
+on the model's device: two processes given the same (config, seed,
+device type) build the same weights, which is how the edge and the cloud
+of a socket session agree without parameters crossing the wire.
 """
 from __future__ import annotations
 
@@ -24,6 +27,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Transformer
 
 
+def _mlp_leaves(prefix: str, mlp):
+    return {f"{prefix}/{n}": getattr(mlp, n)
+            for n in ("w_gate", "w_up", "w_down")}
+
+
 def _named(model: Transformer):
     """(parameter, jax path) pairs; a path ends in a layer index for body
     leaves."""
@@ -35,8 +43,15 @@ def _named(model: Transformer):
         a = blk.attn
         leaves = {"norm1": blk.norm1, "norm2": blk.norm2,
                   "attn/w_q": a.w_q, "attn/w_k": a.w_k, "attn/w_v": a.w_v,
-                  "attn/w_o": a.w_o, "mlp/w_gate": blk.mlp.w_gate,
-                  "mlp/w_up": blk.mlp.w_up, "mlp/w_down": blk.mlp.w_down}
+                  "attn/w_o": a.w_o}
+        if blk.moe is None:
+            leaves.update(_mlp_leaves("mlp", blk.mlp))
+        else:
+            m = blk.moe
+            leaves.update({"moe/router": m.router, "moe/w_gate": m.w_gate,
+                           "moe/w_up": m.w_up, "moe/w_down": m.w_down})
+            if m.shared is not None:
+                leaves.update(_mlp_leaves("moe/shared", m.shared))
         if a.b_q is not None:
             leaves.update({"attn/b_q": a.b_q, "attn/b_k": a.b_k,
                            "attn/b_v": a.b_v})
@@ -64,10 +79,15 @@ def from_jax(params, cfg: ModelConfig, device="cuda", dtype=None):
     return model
 
 
-def _fan_in(path) -> int:
-    name, shape = path
+def _fan_in(path, shape) -> int:
+    """The ``in_axis_size`` the reference's init passes for one leaf: the
+    input axis, which for a routed-expert stack (E, d_in, d_out) is axis
+    1, and for the attention output (nq, hd, d) the first two together."""
+    name = path[-2] if isinstance(path[-1], int) else path[-1]
     if name == "w_o":
         return shape[0] * shape[1]
+    if "moe" in path and "shared" not in path and name != "router":
+        return shape[1]
     return shape[0]
 
 
@@ -85,8 +105,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
         elif name.startswith("b_"):
             prm.zero_()
         else:
-            std = 1.0 / math.sqrt(_fan_in((name, prm.shape)))
+            std = 1.0 / math.sqrt(_fan_in(path, prm.shape))
             w = torch.randn(prm.shape, generator=generator, device=device,
                             dtype=torch.float32)
             prm.copy_(w * std)
     return model
+
+
+def seeded_model(cfg: ModelConfig, seed: int, device="cuda", dtype=None):
+    """``init_params`` from a fresh ``torch.Generator`` on ``device``
+    seeded with ``seed`` (the launch convention: target seed + 1, draft
+    seed + 2)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_params(cfg, gen, device=device, dtype=dtype)

@@ -40,6 +40,15 @@ def admit_rows(beta, fresh_mask, beta0: float):
                                            device=beta.device), beta)
 
 
+def thm2_bound(alpha: float, eta: float, beta0: float, T):
+    """RHS of Theorem 2: α + (|β₁¹| + 1 + ηα)/(ηT), in float32 (torch's
+    ``scalar / tensor`` multiplies by the reciprocal; the reference
+    divides)."""
+    T = torch.as_tensor(T, dtype=torch.float32)
+    num = torch.tensor(abs(beta0) + 1.0 + eta * alpha, dtype=torch.float32)
+    return alpha + num / (eta * T)
+
+
 def beta_envelope(alpha: float, eta: float):
     """Lemma 4: β ∈ [−η(1−α), 1 + ηα] for all n (after burn-in from β₀
     inside the interval)."""

@@ -55,3 +55,8 @@ def reciprocal(c: float) -> float:
     constant into a multiplication by this value, and the reference's
     q̂ = b/ℓ is jitted, so the port multiplies too."""
     return float(np.float32(1.0) / np.float32(c))
+
+
+def tv_distance(p, q, dim=-1):
+    """Total-variation distance 0.5 * sum |p - q| in float32."""
+    return 0.5 * (p.float() - q.float()).abs().sum(dim)

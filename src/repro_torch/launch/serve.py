@@ -17,48 +17,200 @@ throughput, latency percentiles and the rejection rate.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
         --trace --page-size 16 --pipeline pipelined        # on the card
 
-Weights are random, drawn by ``bridge.init_params`` from seeded torch
-generators (target seed+1, draft seed+2).  The socket transport
-(``--transport tcp``), the observability artifacts (``--trace-out``,
-``--metrics-out``) and checkpoint loading are not ported yet.
+``--transport tcp`` replays the same trace over real sockets against a
+``CloudServer`` (``--cloud-port``, or 0 for one in this process; start a
+separate one with ``python -m repro_torch.launch.cloud``) with the
+simulated run as differential oracle: the streams must be equal
+(``[PASS-TRANSPORT]``).  ``--trace-out`` / ``--metrics-out`` write the
+Chrome trace of the round phases and the metrics snapshot (with the
+Theorem-1 decomposition on lockstep runs) and check them
+(``[PASS-OBS]``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
+        --smoke --device cpu --trace --transport tcp \
+        --trace-out /tmp/t.json --metrics-out /tmp/m.json   # CPU smoke
+
+Weights are random, drawn by ``bridge.seeded_model`` from seeded torch
+generators (target seed+1, draft seed+2).  Checkpoint loading is not
+ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
-import torch
-
 from repro_torch import configs, resolve_device
-from repro_torch.bridge import init_params
+from repro_torch.bridge import seeded_model
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
                                      MethodConfig, summarize)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.obs import DecompTracker, Obs, span_names_by_clock
 from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
                                poisson_trace)
 
 
-def build_model(cfg, seed: int, device):
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return init_params(cfg, gen, device=device)
+def build_obs(args) -> Obs:
+    """Obs bundle for --trace-out/--metrics-out runs.  The Theorem-1
+    decomposition needs the dense collect_theory arrays, which only the
+    lockstep simulator round emits — pipelined runs still get spans,
+    counters and coverage-free telemetry."""
+    decomp = None
+    if args.pipeline == "lockstep":
+        decomp = DecompTracker(args.alpha, args.eta, args.ell)
+    return Obs.on(decomp=decomp)
 
 
-def serve_trace(args, eng, tc, dc):
-    cache_len = args.cache_len or (
-        args.prompt_len + args.max_new_tokens + args.L_max + 8)
-    trace = poisson_trace(TraceConfig(
+def finish_obs(args, obs: Obs, tcp: bool):
+    """Export the trace/metrics artifacts and gate on the obs
+    invariants: required round-phase spans per clock, and the per-round
+    rejection telemetry reconciling with ``core.theory.thm1_terms``."""
+    if obs is None:
+        return
+    failures = []
+    if args.trace_out:
+        obs.tracer.export(args.trace_out)
+        names = span_names_by_clock(obs.tracer.chrome_trace())
+        missing = {"draft", "uplink", "verify",
+                   "downlink"} - names.get("modeled", set())
+        if missing:
+            failures.append(
+                f"modeled clock missing spans {sorted(missing)}")
+        if tcp:
+            wmissing = {"draft", "verify_rpc"} - names.get("wall", set())
+            if wmissing:
+                failures.append(
+                    f"wall clock missing spans {sorted(wmissing)}")
+        print(f"  obs  trace: {obs.tracer.n_events} events -> "
+              f"{args.trace_out}")
+    if args.metrics_out:
+        snap = obs.metrics.snapshot()
+        if obs.decomp is not None:
+            snap["decomp"] = obs.decomp.snapshot()
+        with open(args.metrics_out, "w") as f:
+            json.dump(snap, f, indent=1, sort_keys=True)
+        print(f"  obs  metrics -> {args.metrics_out}")
+    if obs.decomp is not None:
+        ok, err = obs.decomp.reconcile()
+        if not ok:
+            failures.append(
+                f"thm1 decomposition does not reconcile "
+                f"(max |mismatch+dropped+lattice - bound| = {err:.3g})")
+        cov = obs.decomp.coverage()
+        print(f"  obs  thm1 per-round terms reconcile "
+              f"(max err {err:.3g}); conformal dropped mass "
+              f"{cov['mean_dropped']:.3g} vs alpha={cov['alpha']:.3g} "
+              f"over {cov['n_positions']} positions")
+    if failures:
+        for msg in failures:
+            print(f"[FAIL-OBS] {msg}")
+        raise SystemExit(1)
+    print("[PASS-OBS] trace/metrics artifacts valid: round-phase spans "
+          "present, rejection telemetry reconciles with thm1_terms")
+
+
+def run_tcp_vs_sim(args, tc, dc, dm, sim_rep, cache_len, device, obs=None):
+    """Replay the SAME seeded trace over real sockets, with the
+    simulated run as differential oracle: token streams must be
+    bit-identical (the transport moves bytes, never tokens), while the
+    tcp side reports MEASURED wall-clock latency next to the sim's
+    modeled clock.  An in-process server (``--cloud-port 0``) verifies
+    on ``device``."""
+    from repro_torch.serve.net import CloudServer, EdgeClient
+
+    method = MethodConfig(args.method, K=args.K, ell=args.ell,
+                          alpha=args.alpha, eta=args.eta)
+    ecfg = EngineConfig(L_max=args.L_max, bit_budget=args.bit_budget,
+                        temperature=args.temperature,
+                        wire_codec=args.wire_codec,
+                        budget_model=args.budget_model)
+    cfg = ServeConfig(
+        max_batch=args.max_batch, queue_cap=args.queue_cap,
+        policy=args.policy, cache_len=cache_len,
+        pipeline=args.pipeline, speculate=not args.no_speculate,
+        n_cells=args.cells, verdict_batch=args.verdict_batch)
+    # a fresh trace: Request objects are mutated by a run, and the
+    # generator is fully determined by its seeded config
+    trace = poisson_trace(make_trace_config(args, tc))
+
+    server = None
+    port = args.cloud_port
+    try:
+        if port == 0:
+            server = CloudServer(host=args.cloud_host,
+                                 device=device).start()
+            port = server.port
+            print(f"[tcp] in-process cloud server on "
+                  f"{args.cloud_host}:{port} device={device}")
+        client = EdgeClient(dc, dm, method, ecfg, cfg,
+                            arch=args.arch, smoke=args.smoke,
+                            host=args.cloud_host, port=port,
+                            seed=args.seed, obs=obs, device=device)
+        with client:
+            net_rep = client.run_trace(trace)
+    finally:
+        if server is not None:
+            server.stop()
+
+    sim_streams = {r.rid: tuple(r.tokens) for r in sim_rep.requests}
+    tcp_streams = net_rep.streams()
+    print(f"[serve --trace --transport tcp] {tc.name} <- {dc.name}  "
+          f"method={args.method} pipeline={args.pipeline} "
+          f"codec={args.wire_codec} cells={args.cells} "
+          f"verdict_batch={args.verdict_batch} device={device}")
+    print(f"  sim  makespan={sim_rep.makespan_s:.4f}s (modeled clock)")
+    s = net_rep.summary()
+    print(f"  tcp  makespan={s['makespan_s']:.4f}s (measured), "
+          f"{s['n_verify_rpcs']} verify RPCs")
+    print(f"  tcp  rpc round  mean={s['rpc_round_s']['mean']*1e3:.2f}ms "
+          f"p50={s['rpc_round_s']['p50']*1e3:.2f}ms "
+          f"p95={s['rpc_round_s']['p95']*1e3:.2f}ms")
+    print(f"  tcp  verify (server) mean={s['t_llm_s']['mean']*1e3:.2f}ms"
+          f"  draft (edge) mean={s['t_slm_s']['mean']*1e3:.2f}ms")
+    if net_rep.cloud_stats is not None:
+        c = net_rep.cloud_stats.get("counters", {})
+        print(f"  tcp  cloud stats: "
+              f"{c.get('cloud.verify_rpcs', 0)} verify RPCs, "
+              f"{c.get('cloud.wire_decode_errors', 0)} decode errors")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"sim": sim_rep.summary(), "tcp": s,
+                       "identical": tcp_streams == sim_streams,
+                       "args": vars(args)}, f, indent=1)
+    if tcp_streams == sim_streams:
+        print(f"[PASS-TRANSPORT] tcp == sim: {len(tcp_streams)} streams "
+              f"bit-identical over real sockets")
+        finish_obs(args, obs, tcp=True)
+        return net_rep
+    bad = [rid for rid in sorted(set(sim_streams) | set(tcp_streams))
+           if sim_streams.get(rid) != tcp_streams.get(rid)]
+    print(f"[FAIL-TRANSPORT] streams diverge for rids {bad[:8]}"
+          f"{'...' if len(bad) > 8 else ''}")
+    raise SystemExit(1)
+
+
+def make_trace_config(args, tc) -> TraceConfig:
+    return TraceConfig(
         n_requests=args.n_requests, rate_rps=args.rate,
         prompt_len=args.prompt_len, min_new_tokens=args.min_new_tokens,
         max_new_tokens=args.max_new_tokens, vocab=tc.vocab, seed=args.seed,
-        cells=args.cells))
+        cells=args.cells)
+
+
+def serve_trace(args, eng, tc, dc, dm, device, obs=None):
+    cache_len = args.cache_len or (
+        args.prompt_len + args.max_new_tokens + args.L_max + 8)
+    trace = poisson_trace(make_trace_config(args, tc))
     sess = ServeSession(eng, ServeConfig(
         max_batch=args.max_batch, queue_cap=args.queue_cap,
         policy=args.policy, cache_len=cache_len, page_size=args.page_size,
         n_pages=args.n_pages or None, pipeline=args.pipeline,
         speculate=not args.no_speculate, n_cells=args.cells,
-        verdict_batch=args.verdict_batch))
+        verdict_batch=args.verdict_batch), obs=obs)
     rep = sess.run_trace(trace)
+    if args.transport == "tcp":
+        return run_tcp_vs_sim(args, tc, dc, dm, rep, cache_len, device,
+                              obs=obs)
     kv = (f"paged({args.page_size}-tok pages)" if args.page_size
           else "dense")
     print(f"[serve --trace] {tc.name} <- {dc.name}  method={args.method} "
@@ -75,6 +227,7 @@ def serve_trace(args, eng, tc, dc):
         with open(args.json, "w") as f:
             json.dump({"report": rep.summary(), "args": vars(args)}, f,
                       indent=1)
+    finish_obs(args, obs, tcp=False)
     return rep
 
 
@@ -142,21 +295,46 @@ def main(argv=None):
     ap.add_argument("--n-pages", type=int, default=0,
                     help="trace mode: KV pool size in pages (0 = auto: "
                          "slots x pages-per-slot, the dense footprint)")
-    for flag in ("--transport", "--trace-out", "--metrics-out"):
-        ap.add_argument(flag, default=None, help="not ported yet")
+    ap.add_argument("--transport", default="sim",
+                    choices=["sim", "tcp"],
+                    help="trace mode: 'sim' replays over the modeled "
+                         "channel; 'tcp' drives a real CloudServer over "
+                         "sockets AND runs the simulator as differential "
+                         "oracle — streams must be bit-identical "
+                         "([PASS-TRANSPORT])")
+    ap.add_argument("--cloud-host", default="127.0.0.1")
+    ap.add_argument("--cloud-port", type=int, default=0,
+                    help="tcp transport: CloudServer port (0 = spawn an "
+                         "in-process threaded server on an ephemeral "
+                         "port)")
+    ap.add_argument("--trace-out", default="",
+                    help="trace mode: write a Chrome-trace-event JSON "
+                         "of the run's round phases (open in "
+                         "ui.perfetto.dev); sim rounds land on the "
+                         "'modeled clock' process, tcp RPCs on the "
+                         "'wall clock' process")
+    ap.add_argument("--metrics-out", default="",
+                    help="trace mode: write the metrics registry "
+                         "snapshot (counters/gauges/histograms, plus "
+                         "the Theorem-1 rejection decomposition when "
+                         "pipeline=lockstep) as JSON")
     args = ap.parse_args(argv)
-    for flag in ("transport", "trace_out", "metrics_out"):
-        if getattr(args, flag) not in (None, "sim"):
-            raise SystemExit(f"--{flag.replace('_', '-')}: not yet ported "
-                             "(next slice)")
+    if args.transport == "tcp" and not args.trace:
+        ap.error("--transport tcp requires --trace")
+    if args.transport == "tcp" and args.page_size:
+        ap.error("--transport tcp serves dense slots only (--page-size 0)")
+    if (args.trace_out or args.metrics_out) and not args.trace:
+        ap.error("--trace-out/--metrics-out require --trace")
+    obs = build_obs(args) if (args.trace_out or args.metrics_out) \
+        else None
     device = resolve_device(args.device)
 
     tc = configs.get_config(args.arch)
     if args.smoke:
         tc = configs.smoke_variant(tc)
     dc = configs.draft_variant(tc, args.draft_scale)
-    tp = build_model(tc, args.seed + 1, device)
-    dp = build_model(dc, args.seed + 2, device)
+    tp = seeded_model(tc, args.seed + 1, device)
+    dp = seeded_model(dc, args.seed + 2, device)
 
     eng = EdgeCloudEngine(
         dc, dp, tc, tp,
@@ -165,13 +343,16 @@ def main(argv=None):
         EngineConfig(L_max=args.L_max, bit_budget=args.bit_budget,
                      temperature=args.temperature,
                      wire_codec=args.wire_codec,
-                     budget_model=args.budget_model),
+                     budget_model=args.budget_model,
+                     # dense q/p arrays for the Theorem-1 decomposition;
+                     # records only — tokens are unaffected
+                     collect_theory=bool(obs and obs.decomp)),
         ChannelConfig(uplink_bps=args.uplink_bps,
                       downlink_bps=args.downlink_mbps * 1e6),
         seed=args.seed, device=device)
 
     if args.trace:
-        return serve_trace(args, eng, tc, dc)
+        return serve_trace(args, eng, tc, dc, dp, device, obs=obs)
     data = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77))
     prompts = data.sample(args.batch, args.prompt_len)[:, :-1]
     rounds, _ = eng.run(prompts, args.rounds)

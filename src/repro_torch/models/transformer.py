@@ -1,5 +1,6 @@
-"""The attention + SwiGLU block and the layer stack (mirrors
-``repro.models.transformer`` for dense GQA configs).  The reference scans
+"""The attention + SwiGLU (or MoE) block and the layer stack (mirrors
+``repro.models.transformer`` for GQA attention configs with a dense or a
+mixture-of-experts channel mixer).  The reference scans
 period-stacked parameters with ``jax.lax.scan``; the port keeps one
 module per layer in an ``nn.ModuleList`` and loops in Python."""
 from __future__ import annotations
@@ -10,6 +11,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, frozen, rmsnorm
+from repro_torch.models.moe import MoE
 
 
 class Block(nn.Module):
@@ -21,7 +23,10 @@ class Block(nn.Module):
         self.norm1 = frozen(d, dtype=torch.float32, device=device, fill=1.0)
         self.attn = attn.Attention(cfg, dtype, device)
         self.norm2 = frozen(d, dtype=torch.float32, device=device, fill=1.0)
-        self.mlp = MLP(d, cfg.d_ff, dtype, device)
+        if cfg.ffn_pattern == ("moe",):
+            self.mlp, self.moe = None, MoE(cfg, dtype, device)
+        else:
+            self.mlp, self.moe = MLP(d, cfg.d_ff, dtype, device), None
 
     def prefill(self, x, positions):
         """Returns (x, {"k", "v"}) for the prompt."""
@@ -36,18 +41,20 @@ class Block(nn.Module):
         return self._ffn(x + a)
 
     def _ffn(self, x):
-        return x + self.mlp(rmsnorm(x, self.norm2, self.cfg.rms_eps))
+        ffn = self.mlp if self.moe is None else self.moe
+        return x + ffn(rmsnorm(x, self.norm2, self.cfg.rms_eps))
 
 
 def check_supported(cfg: ModelConfig):
-    """The port runs dense GQA attention + MLP stacks so far, with a KV
-    cache in the compute dtype or in int8."""
-    dense = (cfg.block_pattern == ("attn",) and cfg.ffn_pattern == ("mlp",)
-             and cfg.n_prefix_layers == 0 and cfg.n_encoder_layers == 0
-             and not cfg.is_mla and cfg.attention == "full"
-             and cfg.kv_cache_dtype in ("compute", "int8")
-             and cfg.frontend == "none")
-    if not dense:
+    """The port runs GQA attention stacks with an MLP or a MoE channel
+    mixer so far, with a KV cache in the compute dtype or in int8."""
+    ok = (cfg.block_pattern == ("attn",)
+          and cfg.ffn_pattern in (("mlp",), ("moe",))
+          and cfg.n_prefix_layers == 0 and cfg.n_encoder_layers == 0
+          and not cfg.is_mla and cfg.attention == "full"
+          and cfg.kv_cache_dtype in ("compute", "int8")
+          and cfg.frontend == "none")
+    if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA attention+MLP configs are ported "
+            f"{cfg.name}: only GQA attention + MLP/MoE configs are ported "
             "so far")

@@ -1,20 +1,24 @@
 """Observability layer for the serving stack (mirrors ``repro.obs``).
 
-    SpanTracer       — dual-clock span tracing with Chrome-trace-event /
-                       Perfetto export (obs.trace)
+    SpanTracer       — dual-clock (modeled + wall) span tracing with
+                       Chrome-trace-event / Perfetto export (obs.trace)
     MetricsRegistry  — counters / gauges / fixed-bucket histograms with
                        deterministic snapshots (obs.metrics)
+    DecompTracker    — online Theorem-1 rejection decomposition and
+                       conformal coverage telemetry (obs.decomp)
     Obs              — the bundle threaded through ServeSession /
-                       EventDrivenLoop; ``NULL_OBS`` is the shared
-                       disabled instance
+                       EventDrivenLoop / EdgeClient; ``NULL_OBS`` is the
+                       shared disabled instance
 
-The online Theorem-1 decomposition (``repro.obs.decomp``) is not ported
-yet, so ``Obs.on(decomp=...)`` accepts only None.  Every instrument only
-reads caller-supplied host values: token streams are bit-identical with
-observability on or off.
+Every instrument only reads caller-supplied host values: token streams
+are bit-identical with observability on or off, over the simulator and
+over sockets.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+from repro_torch.obs.decomp import DecompTracker
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, percentile,
                                      summary_stats)
@@ -22,40 +26,37 @@ from repro_torch.obs.trace import (CLOCK_MODELED, CLOCK_WALL, SpanTracer,
                                    span_names_by_clock)
 
 __all__ = [
-    "CLOCK_MODELED", "CLOCK_WALL", "Counter", "Gauge", "Histogram",
-    "MetricsRegistry", "NULL_OBS", "Obs", "SpanTracer", "percentile",
-    "snapshot_topology", "span_names_by_clock", "summary_stats",
+    "CLOCK_MODELED", "CLOCK_WALL", "Counter", "DecompTracker", "Gauge",
+    "Histogram", "MetricsRegistry", "NULL_OBS", "Obs", "SpanTracer",
+    "percentile", "snapshot_topology", "span_names_by_clock",
+    "summary_stats",
 ]
 
 
-def _no_decomp(decomp):
-    if decomp is not None:
-        raise NotImplementedError("the Theorem-1 decomposition tracker "
-                                  "(repro.obs.decomp) is not ported yet")
-
-
 class Obs:
-    """Tracer + metrics as one handle the serving loops thread through.
-    Construct with ``Obs.on()`` for everything enabled, or
-    default-construct (or use ``NULL_OBS``) for the disabled bundle."""
+    """Tracer + metrics + (optional) Theorem-1 decomposition, as one
+    handle the serving loops thread through.  Construct with
+    ``Obs.on()`` for everything enabled, or default-construct (or use
+    ``NULL_OBS``) for the disabled bundle."""
 
-    def __init__(self, tracer: SpanTracer = None,
-                 metrics: MetricsRegistry = None, decomp=None):
-        _no_decomp(decomp)
+    def __init__(self, tracer: Optional[SpanTracer] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 decomp: Optional[DecompTracker] = None):
         self.tracer = tracer if tracer is not None \
             else SpanTracer(enabled=False)
         self.metrics = metrics if metrics is not None \
             else MetricsRegistry(enabled=False)
-        self.decomp = None
+        self.decomp = decomp
 
     @classmethod
-    def on(cls, decomp=None) -> "Obs":
+    def on(cls, decomp: Optional[DecompTracker] = None) -> "Obs":
         return cls(SpanTracer(enabled=True), MetricsRegistry(enabled=True),
                    decomp)
 
     @property
     def enabled(self) -> bool:
-        return self.tracer.enabled or self.metrics.enabled
+        return (self.tracer.enabled or self.metrics.enabled
+                or self.decomp is not None)
 
 
 NULL_OBS = Obs()

@@ -3,9 +3,9 @@ copy of ``repro.obs.trace``).
 
 The serving stack runs on two kinds of time: the discrete-event
 simulator's MODELED clock (``ServeSession`` / ``EventDrivenLoop``
-virtual seconds) and a socket runner's WALL clock
-(``time.perf_counter`` deltas; the socket runner is not ported yet).
-The tracer maps each clock to its own Chrome-trace *process* (pid), so
+virtual seconds) and the socket runner's WALL clock
+(``time.perf_counter`` deltas in ``serve.net.EdgeClient``).  The
+tracer maps each clock to its own Chrome-trace *process* (pid), so
 Perfetto shows modeled round phases (draft / uplink / verify /
 downlink) and measured spans side by side on independent timelines.
 

@@ -331,6 +331,8 @@ class ServeSession:
             mx.histogram("serve.t_slm_s").observe(t_slm)
             mx.histogram("serve.t_llm_s").observe(t_llm)
             mx.gauge("serve.active_slots").set(len(by_slot))
+            if self.obs.decomp is not None:
+                self.obs.decomp.observe_round(m)
 
         # --- token delivery + completion ---
         finished = []

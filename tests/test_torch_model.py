@@ -1,7 +1,12 @@
 """The port's dense GQA model on bridged parameters against
 repro.models, in float32 on the CPU: prefill, extend (L = 1 and 5) and
 decode logits agree to atol 1e-4 (torch and XLA reduce in different
-orders; the reference's own cache-consistency test allows 3e-4)."""
+orders; the reference's own cache-consistency test allows 3e-4).  Every
+architecture the port names is the reference's config field for field
+(full size, smoke and draft), and its smoke model's prefill logits agree
+to the same atol."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -101,3 +106,22 @@ def test_init_params_distributions():
     m2 = bridge.init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu")
     assert torch.equal(m.embedding, m2.embedding)      # seeded, repeatable
+
+
+@pytest.mark.parametrize("name", configs.ASSIGNED)
+def test_config_and_smoke_logits_match_reference(name):
+    full = (jconfigs.get_config(name), configs.get_config(name))
+    smoke = tuple(c.smoke_variant(f) for c, f in zip((jconfigs, configs),
+                                                    full))
+    draft = tuple(c.draft_variant(f, 2) for c, f in zip((jconfigs, configs),
+                                                       full))
+    for ref, port in (full, smoke, draft):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    jcfg, tcfg = smoke
+    params = _numpy_params(jcfg, 30)
+    model = bridge.from_jax(params, tcfg, device="cpu")
+    toks = _toks(np.random.default_rng(1), (2, 7), jcfg.vocab)
+    lj, _ = prefill(jcfg, jax.tree.map(jnp.asarray, params),
+                    jnp.asarray(toks))
+    lt, _ = tmodel.prefill(model, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
