@@ -12,7 +12,8 @@ Phases:
      on near-uniform rows, never compacting on all-equal rows, the K-SQS
      index trim on tied logits), and at the vocabularies of the other
      dense configs (granite-3-8b's 49155, padded to 49280; stablelm-12b's
-     100352; deepseek-7b's 102400); the two flash-decode kernels over
+     100352; deepseek-7b's 102400) and of the paper's pair (gptneo-1.3b's
+     50257, padded to 50304); the two flash-decode kernels over
      the reference's sweeps in f32, bf16 and int8, paged against dense
      on gathered pages, and the serving shape (nq 16, nkv 2, hd 128,
      bf16);
@@ -58,11 +59,25 @@ Phases:
      qwen2.5-3b models are freed: fixed-batch K-SQS and C-SQS rounds at
      the phase-3 settings, both SQS kernels against their twins at the
      draft's next-step logits, a short trace served lockstep and
-     pipelined with equal streams.
+     pipelined with equal streams;
+ 11. the paper's pair trained and served, after the MoE models are
+     freed: (a) full-width ``gptneo-1.3b`` (24 layers, d 2048, 16/16
+     heads, V 50257; float32 masters, bf16 compute, AdamW, per-layer
+     remat) train steps at B 8 x S 512, with microbatches 1 and then 2
+     from the same start (losses agree within TRAIN_LOSS_ATOL), step time
+     by CUDA events, tokens/s, peak memory, and one step under
+     torch.profiler (busy share, device time by op class); (b) the
+     target and its 2x draft trained from seeded weights on
+     ``benchmarks/common.py`` ``trained_pair``'s corpus at V 50257 (the
+     loss must fall by 0.5), saved with the port's ``checkpoint.save``;
+     (c) served from those checkpoints through
+     ``repro_torch.launch.serve.main``: fixed-batch K-SQS and C-SQS at
+     the phase-3 settings (accepted tokens in every method, both SQS
+     kernels launched at Vp 50304) and a short pipelined trace.
 
 Every phase that drives a path sets the kernels' launch counts to 0
 just before it and reads them just after; the SQS rows of the kernels
-line add the launches of phases 3, 5, 8, 9 and 10.
+line add the launches of phases 3, 5, 8, 9, 10 and 11.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -80,6 +95,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -108,10 +124,22 @@ POOL_SLOTS, POOL_CAP, POOL_PAGES = 32, 4096, 8192
 POOL_POS, POOL_SEED = (2048, 4095), 13
 GRAPH_CALLS = 20                   # calls per CUDA graph in graph_ms
 # phase 2: the dense configs whose vocabularies the SQS kernels also see
-DENSE_VOCAB_ARCHS = ("granite-3-8b", "stablelm-12b", "deepseek-7b")
+DENSE_VOCAB_ARCHS = ("granite-3-8b", "stablelm-12b", "deepseek-7b",
+                     "gptneo-1.3b")
 # phases 8-9: two-process serving, 2 cells over the phase-5 slots
 TCP_CELLS = 2
 MOE_ARCH = "qwen2-moe-a2.7b"
+# phase 11: the paper's pair; (a) train steps a run, their batch and
+# sequence, and the bound on |loss(microbatches 1) - loss(microbatches 2)|
+# a step (bf16 GEMMs of other shapes round otherwise); (b) target and
+# draft train steps, the least fall of each loss, and the peak learning
+# rate (trained_pair's 2e-3 is for its smoke widths; at d 2048 the loss
+# spikes past its start in the first 50 steps)
+PAIR_ARCH = "gptneo-1.3b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 512
+TRAIN_LOSS_ATOL = 2e-2
+PAIR_STEPS, DRAFT_STEPS, LOSS_FALL, PAIR_LR = 300, 150, 0.5, 3e-4
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor cores
 TPU_SOURCES = {
     "sqs_fused": "src/repro/kernels/sqs_fused.py:118",
     "topk_threshold": "src/repro/kernels/sqs_fused.py:171",
@@ -404,8 +432,9 @@ def phase_kernels():
 
 def phase_kernels_vocabularies():
     """Both SQS kernels against their twins at the vocabularies of the
-    three other dense configs (49155 pads to 49280: the kernels see -inf
-    padding), C-SQS at two temperatures and K-SQS at two K."""
+    three other dense configs and of the paper's pair (49155 pads to
+    49280, 50257 to 50304: the kernels see -inf padding), C-SQS at two
+    temperatures and K-SQS at two K."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import ref, sqs_fused as k
@@ -415,7 +444,7 @@ def phase_kernels_vocabularies():
     t0 = time.perf_counter()
     n_bad = 0
     print("phase 2: SQS kernels vs plain twins at the other dense configs' "
-          "vocabularies")
+          "and the paper pair's vocabularies")
     for name in DENSE_VOCAB_ARCHS:
         V = configs.get_config(name).vocab
         lp = pad_logits(torch.randn((BATCH, V), generator=gen, device=dev)
@@ -1569,11 +1598,276 @@ def phase_moe(dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 11: the paper's pair, trained and served
+# ----------------------------------------------------------------------
+OP_CLASSES = (("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+              ("softmax", ("softmax",)),
+              ("reduction", ("reduce", "norm")),
+              ("index / scatter / gather", ("index", "scatter", "gather")),
+              ("copy / fill", ("copy", "memcpy", "memset", "fill")),
+              ("elementwise", ("elementwise", "vectorized")))
+
+
+def op_class(name):
+    low = name.lower()
+    for cls, keys in OP_CLASSES:
+        if any(key in low for key in keys):
+            return cls
+    return "other"
+
+
+def event_ms(fn):
+    """One call of ``fn`` between two CUDA events on the current stream."""
+    import torch
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e), out
+
+
+def phase_train_steps(dev):
+    """(a) Full-width train steps of the paper's target: microbatches 1,
+    then 2 from the same start, the losses held together; step time,
+    tokens/s, peak memory, and one step under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import param_count
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.trainer import make_train_step, parameters
+    t0 = time.perf_counter()
+    tc = configs.get_config(PAIR_ARCH)
+    model = seeded_model(tc, 1, dev, trainable=True)
+    params = parameters(model)
+    n = param_count(model)
+    start = [p.detach().to("cpu", copy=True) for p in params]
+    data = SyntheticLM(DataConfig(vocab=tc.vocab, seq_len=TRAIN_SEQ,
+                                  batch=TRAIN_BATCH, seed=1234))
+    batches = [{"tokens": torch.from_numpy(b["tokens"]).to(dev)}
+               for b in data.batches(TRAIN_STEPS)]
+    # launch/train.py's warmup rule
+    oc = AdamWConfig(lr=PAIR_LR,
+                     warmup_steps=min(100, TRAIN_STEPS // 10 + 1),
+                     total_steps=TRAIN_STEPS)
+    state_bytes = 16 * n                  # f32 params, grads, m and v
+    print(f"phase 11: the paper's pair, {tc.name} ({tc.n_layers} layers, d "
+          f"{tc.d_model}, {tc.n_heads}/{tc.n_kv_heads} heads, V {tc.vocab}; "
+          f"{n / 1e9:.3f} B params), float32 masters, {tc.dtype} compute, "
+          f"AdamW, remat per layer; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for mb in (1, 2):
+        with torch.no_grad():
+            for p, p0 in zip(params, start):
+                p.copy_(p0)
+        state = init_state(params)
+        step = make_train_step(tc, oc, microbatches=mb)
+        losses, ms = [], []
+        for b in batches:
+            t, (_, state, m) = event_ms(lambda: step(model, state, b))
+            ms.append(t)
+            losses.append(float(m["loss"]))
+        del state
+        runs[mb] = (losses, ms)
+        check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+        steady = statistics.median(ms[1:])
+        tok = TRAIN_BATCH * TRAIN_SEQ
+        print(f"  (a) microbatches {mb}: B {TRAIN_BATCH} x S {TRAIN_SEQ}, "
+              f"losses {[round(x, 5) for x in losses]}; step ms (CUDA "
+              f"events) {' '.join(f'{t:.1f}' for t in ms)}; steady "
+              f"{steady:.1f} ms = {tok / steady * 1e3:.0f} tokens/s, "
+              f"6 N tokens / step time = "
+              f"{6 * n * tok / steady / 1e9:.1f} TFLOP/s "
+              f"({6 * n * tok / steady / 1e9 / (BF16_FLOPS / 1e12):.3f} of "
+              f"the bf16 peak)")
+    peak = torch.cuda.max_memory_allocated()
+    diff = max(abs(a - b) for a, b in zip(runs[1][0], runs[2][0]))
+    check(diff <= TRAIN_LOSS_ATOL, f"microbatches 1 vs 2: losses differ by "
+          f"{diff} > {TRAIN_LOSS_ATOL}")
+    print(f"  (a) microbatches 1 vs 2 from the same start: max |loss "
+          f"difference| {diff:.3g} (bound {TRAIN_LOSS_ATOL}); peak "
+          f"{peak / 1e9:.2f} GB allocated against "
+          f"{state_bytes / 1e9:.2f} GB of params + grads + m + v")
+    state = init_state(params)
+    step = make_train_step(tc, oc)
+    bare, _ = event_ms(lambda: step(model, state, batches[0]))   # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = event_ms(lambda: step(model, state, batches[1]))
+    dev_us, by_op = device_ops(prof)
+    if dev_us == 0.0:
+        print("  (a) profiler, one train step: the profiler saw no device "
+              f"time (not measured); unprofiled step {bare:.1f} ms")
+    else:
+        classes = {}
+        for t, cnt, key in by_op:
+            c = classes.setdefault(op_class(key), [0.0, 0])
+            c[0] += t
+            c[1] += cnt
+        print(f"  (a) profiler, one train step (microbatches 1): wall "
+              f"{wall:.1f} ms ({bare:.1f} ms unprofiled), device busy "
+              f"{dev_us / 1e3:.1f} ms = {dev_us / 1e3 / bare:.3f} of the "
+              f"unprofiled step; by op class: " + "; ".join(
+                  f"{cls} {t / 1e3:.1f} ms over {cnt} calls"
+                  for cls, (t, cnt) in sorted(classes.items(),
+                                              key=lambda kv: -kv[1][0])))
+        print("    most device time: " + "; ".join(
+            f"{key[:60]} {t / 1e3:.2f} ms over {cnt} calls"
+            for t, cnt, key in sorted(by_op, reverse=True)[:6]))
+    del model, params, state, start, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_pair(dev, tmp):
+    """(b) Train the target and its 2x draft on ``trained_pair``'s corpus
+    at V 50257 (one stream: the draft continues where the target
+    stopped, as ``benchmarks/common.py`` does) and save both with the
+    port's checkpoint.  Returns the checkpoint paths."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model, to_jax_tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import param_count
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import AdamWConfig, init_state
+    from repro_torch.train.trainer import make_train_step, parameters
+    tc = configs.get_config(PAIR_ARCH)
+    dc = configs.draft_variant(tc, 2)
+    data = SyntheticLM(DataConfig(vocab=tc.vocab, seq_len=48, batch=16,
+                                  p_bigram=0.85, jitter=2, seed=5))
+    paths = {}
+    for role, cfg, steps, seed in (("target", tc, PAIR_STEPS, 1),
+                                   ("draft", dc, DRAFT_STEPS, 2)):
+        model = seeded_model(cfg, seed, dev, trainable=True)
+        step = make_train_step(cfg, AdamWConfig(lr=PAIR_LR, warmup_steps=10,
+                                                total_steps=steps))
+        state = init_state(parameters(model))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for b in data.batches(steps):
+            _, state, m = step(model, state,
+                               {"tokens": torch.from_numpy(b["tokens"])
+                                .to(dev)})
+            losses.append(m["loss"])
+        losses = torch.stack(losses).tolist()
+        train_s = time.perf_counter() - t0
+        check(all(math.isfinite(x) for x in losses),
+              f"{role}: non-finite loss")
+        check(losses[-1] < losses[0] - LOSS_FALL,
+              f"{role}: loss {losses[0]:.4f} -> {losses[-1]:.4f} fell by "
+              f"less than {LOSS_FALL}")
+        path = os.path.join(tmp, role)
+        t1 = time.perf_counter()
+        checkpoint.save(path, to_jax_tree(model),
+                        meta={"arch": cfg.name, "steps": steps,
+                              "loss": losses[-1]})
+        save_s = time.perf_counter() - t1
+        print(f"  (b) {cfg.name} ({param_count(model) / 1e9:.3f} B params): "
+              f"{steps} steps of B 16 x S 48 in {train_s:.1f} s "
+              f"({train_s / steps * 1e3:.1f} ms a step, host clock); loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} (every 25th: "
+              f"{[round(x, 3) for x in losses[::25]]}); checkpoint "
+              f"{os.path.getsize(path + '.npz') / 1e9:.2f} GB saved in "
+              f"{save_s:.1f} s")
+        paths[role] = path
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_serve_pair(paths):
+    """(c) Serve the trained pair from its checkpoints through the port's
+    serve entry point: fixed-batch K-SQS and C-SQS at the phase-3
+    settings (accepted tokens in every method), then a short pipelined
+    trace.  Returns the SQS launches of the path."""
+    import numpy as np
+    from repro_torch.core.engine import summarize
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.launch import serve as serve_launch
+    base = ["--arch", PAIR_ARCH, "--target-ckpt", paths["target"],
+            "--draft-ckpt", paths["draft"], "--device", "cuda",
+            "--L-max", str(L_MAX), "--prompt-len", str(PROMPT_LEN)]
+    launches = {name: 0 for name in k.LAUNCHES}
+    for method in ("ksqs", "csqs"):
+        k.reset_launches()
+        t0 = time.perf_counter()
+        rounds = serve_launch.main(base + [
+            "--method", method, "--K", "64", "--ell", "100",
+            "--rounds", str(ROUNDS), "--batch", str(BATCH)])
+        wall = time.perf_counter() - t0
+        got = dict(k.LAUNCHES)
+        steps = ROUNDS * (L_MAX + 1)
+        want = {"sqs_fused": steps,
+                "topk_threshold": steps if method == "ksqs" else 0}
+        check(got == want, f"pair {method}: launches {got} != {want}")
+        for name in launches:
+            launches[name] += got[name]
+        s = summarize(rounds)
+        acc = [float(np.mean(r["n_accept"])) for r in rounds]
+        check(float(np.mean(acc)) > 0,
+              f"pair {method}: no token accepted ({acc})")
+        print(f"  (c) {method}/v1 from the checkpoints ({wall:.1f} s with "
+              f"loading): accepted tokens a row a round "
+              f"{[round(a, 3) for a in acc]} (mean "
+              f"{float(np.mean(acc)):.3f}); accept rate "
+              f"{s['accept_rate']:.4f}; resampling rate "
+              f"{s['resampling_rate']:.4f}; mean K {s['mean_K']:.1f}; "
+              f"latency per token {s['latency_per_token_s'] * 1e3:.2f} ms; "
+              f"wire bits per batch {s['wire_bits_per_batch']:.0f}; "
+              f"launches {got}")
+        print("    t_slm ms " + " ".join(f"{r['t_slm'] * 1e3:.2f}"
+                                           for r in rounds)
+              + " | t_llm ms " + " ".join(f"{r['t_llm'] * 1e3:.2f}"
+                                          for r in rounds))
+    k.reset_launches()
+    rep = serve_launch.main(base + [
+        "--trace", "--pipeline", "pipelined", "--n-requests", "4",
+        "--rate", "4", "--min-new-tokens", "6", "--max-new-tokens", "10",
+        "--max-batch", str(SLOTS)])
+    check(rep.n_finished == rep.n_requests == 4,
+          f"pair trace: {rep.n_finished} of {rep.n_requests} finished")
+    check(k.LAUNCHES["sqs_fused"] > 0, "pair trace never launched sqs_fused")
+    for name, cnt in k.LAUNCHES.items():
+        launches[name] += cnt
+    summ = rep.summary()
+    print("  (c) pipelined trace from the checkpoints: " + json.dumps(
+        {key: summ[key] for key in ("n_requests", "n_finished",
+                                    "total_tokens", "n_rounds",
+                                    "makespan_s", "latency_p50_s",
+                                    "latency_p99_s", "n_spec_hits",
+                                    "n_spec_misses")})
+        + f"; launches {dict(k.LAUNCHES)}")
+    return launches
+
+
+def phase_pair(dev):
+    """Phase 11: (a) train steps at full width, (b) the pair trained and
+    saved, (c) served from its checkpoints."""
+    t0 = time.perf_counter()
+    phase_train_steps(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = phase_train_pair(dev, tmp)
+        launches = phase_serve_pair(paths)
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()
@@ -1615,9 +1909,14 @@ def main():
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     moe_launches = phase_moe(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pair_launches = phase_pair(dev)
     for r in rows:
         r["launches"] += (tcp_launches.get(r["name"], 0)
-                          + moe_launches.get(r["name"], 0))
+                          + moe_launches.get(r["name"], 0)
+                          + pair_launches.get(r["name"], 0))
+    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Model state for the port: from the reference's parameters, or drawn
-fresh.
+fresh, and back.
 
 ``from_jax`` takes the numpy'd parameter tree of
-``repro.models.init_params`` (``jax.tree.map(np.asarray, params)``) and
-fills a ``Transformer`` with it: body leaves are period-stacked
-``(N, ...)`` and are unstacked one layer each.  It receives numpy arrays
-only and imports nothing of the JAX package.
+``repro.models.init_params`` (``jax.tree.map(np.asarray, params)``, or
+a checkpoint's ``train.checkpoint.load``) and fills a ``Transformer``
+with it: body leaves are period-stacked ``(N, ...)`` and are unstacked
+one layer each.  ``to_jax_tree`` is its inverse: the reference's nested
+numpy tree in float32, body leaves stacked again.  Neither imports
+anything of the JAX package.
 
 ``init_params`` draws the distributions of ``repro.models.layers.
 dense_init`` from an explicit ``torch.Generator`` (normal x 1/sqrt(fan_in)
@@ -32,9 +34,10 @@ def _mlp_leaves(prefix: str, mlp):
             for n in ("w_gate", "w_up", "w_down")}
 
 
-def _named(model: Transformer):
-    """(parameter, jax path) pairs; a path ends in a layer index for body
-    leaves."""
+def leaves(model: Transformer):
+    """(parameter, jax path) pairs in a fixed order; a path ends in a
+    layer index for body leaves, which the reference stacks over layers
+    (a body leaf's reference shape is (n_layers,) + its shape)."""
     out = [(model.embedding, ("embed", "embedding")),
            (model.final_norm, ("final_norm",))]
     if model.lm_head is not None:
@@ -61,11 +64,13 @@ def _named(model: Transformer):
 
 
 @torch.no_grad()
-def from_jax(params, cfg: ModelConfig, device="cuda", dtype=None):
-    """Build the port's model from the reference's numpy'd parameters."""
+def from_jax(params, cfg: ModelConfig, device="cuda", dtype=None,
+             trainable: bool = False):
+    """Build the port's model from the reference's numpy'd parameters
+    (float32 masters with gradients on when ``trainable``)."""
     device = resolve_device(device)
-    model = Transformer(cfg, dtype=dtype, device=device)
-    for prm, path in _named(model):
+    model = Transformer(cfg, dtype=dtype, device=device, trainable=trainable)
+    for prm, path in leaves(model):
         node = params
         for key in path[:-1] if isinstance(path[-1], int) else path:
             node = node[key]
@@ -77,6 +82,32 @@ def from_jax(params, cfg: ModelConfig, device="cuda", dtype=None):
                              f"{tuple(prm.shape)}")
         prm.copy_(torch.from_numpy(np.array(arr)))
     return model
+
+
+def to_jax_tree(model: Transformer, values=None):
+    """The reference's nested parameter tree as float32 numpy arrays, body
+    leaves stacked (n_layers, ...) under ``body/p0/...``: of the model's
+    parameters, or of ``values``, tensors in ``leaves(model)`` order (its
+    gradients, or an optimizer moment)."""
+    pairs = leaves(model)
+    if values is None:
+        values = [prm for prm, _ in pairs]
+    tree, stacks = {}, {}
+    for t, (_, path) in zip(values, pairs):
+        arr = t.detach().float().cpu().numpy()
+        if isinstance(path[-1], int):
+            stacks.setdefault(path[:-1], []).append(arr)
+            continue
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    for path, arrs in stacks.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrs)
+    return tree
 
 
 def _fan_in(path, shape) -> int:
@@ -93,12 +124,12 @@ def _fan_in(path, shape) -> int:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
-                dtype=None):
+                dtype=None, trainable: bool = False):
     """Random weights with the reference's init distributions, drawn from
     ``generator`` (which must live on ``device``)."""
     device = resolve_device(device)
-    model = Transformer(cfg, dtype=dtype, device=device)
-    for prm, path in _named(model):
+    model = Transformer(cfg, dtype=dtype, device=device, trainable=trainable)
+    for prm, path in leaves(model):
         name = path[-2] if isinstance(path[-1], int) else path[-1]
         if name in ("norm1", "norm2", "final_norm"):
             prm.fill_(1.0)
@@ -112,10 +143,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     return model
 
 
-def seeded_model(cfg: ModelConfig, seed: int, device="cuda", dtype=None):
+def seeded_model(cfg: ModelConfig, seed: int, device="cuda", dtype=None,
+                 trainable: bool = False):
     """``init_params`` from a fresh ``torch.Generator`` on ``device``
     seeded with ``seed`` (the launch convention: target seed + 1, draft
     seed + 2)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    return init_params(cfg, gen, device=device, dtype=dtype)
+    return init_params(cfg, gen, device=device, dtype=dtype,
+                       trainable=trainable)

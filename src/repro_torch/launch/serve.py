@@ -30,9 +30,13 @@ Theorem-1 decomposition on lockstep runs) and check them
         --smoke --device cpu --trace --transport tcp \
         --trace-out /tmp/t.json --metrics-out /tmp/m.json   # CPU smoke
 
-Weights are random, drawn by ``bridge.seeded_model`` from seeded torch
-generators (target seed+1, draft seed+2).  Checkpoint loading is not
-ported yet.
+Weights come from ``--target-ckpt`` / ``--draft-ckpt`` (flat-npz
+checkpoints of ``repro_torch.launch.train`` or of the reference's
+trainer); an empty flag draws random ones with ``bridge.seeded_model``
+from seeded torch generators (target seed+1, draft seed+2).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gptneo-1.3b \
+        --target-ckpt ckpt/target --draft-ckpt ckpt/draft   # on the card
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import argparse
 import json
 
 from repro_torch import configs, resolve_device
-from repro_torch.bridge import seeded_model
+from repro_torch.bridge import from_jax, seeded_model
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
                                      MethodConfig, summarize)
@@ -48,6 +52,14 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.obs import DecompTracker, Obs, span_names_by_clock
 from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
                                poisson_trace)
+from repro_torch.train import checkpoint
+
+
+def load_or_init(cfg, ckpt, seed, device):
+    """A serving model from a checkpoint, or seeded random weights."""
+    if ckpt:
+        return from_jax(checkpoint.load(ckpt), cfg, device)
+    return seeded_model(cfg, seed, device)
 
 
 def build_obs(args) -> Obs:
@@ -233,8 +245,14 @@ def serve_trace(args, eng, tc, dc, dm, device, obs=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=configs.ASSIGNED)
+    ap.add_argument("--arch", required=True, choices=configs.list_configs())
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--target-ckpt", default="",
+                    help="flat-npz checkpoint of the target (empty: "
+                         "seeded random weights)")
+    ap.add_argument("--draft-ckpt", default="",
+                    help="flat-npz checkpoint of the draft (empty: "
+                         "seeded random weights)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--draft-scale", type=int, default=2)
     ap.add_argument("--method", default="csqs",
@@ -323,6 +341,9 @@ def main(argv=None):
         ap.error("--transport tcp requires --trace")
     if args.transport == "tcp" and args.page_size:
         ap.error("--transport tcp serves dense slots only (--page-size 0)")
+    if args.transport == "tcp" and args.target_ckpt:
+        ap.error("--transport tcp: the cloud draws its target from --seed; "
+                 "serve a --target-ckpt with --transport sim")
     if (args.trace_out or args.metrics_out) and not args.trace:
         ap.error("--trace-out/--metrics-out require --trace")
     obs = build_obs(args) if (args.trace_out or args.metrics_out) \
@@ -333,8 +354,8 @@ def main(argv=None):
     if args.smoke:
         tc = configs.smoke_variant(tc)
     dc = configs.draft_variant(tc, args.draft_scale)
-    tp = seeded_model(tc, args.seed + 1, device)
-    dp = seeded_model(dc, args.seed + 2, device)
+    tp = load_or_init(tc, args.target_ckpt, args.seed + 1, device)
+    dp = load_or_init(dc, args.draft_ckpt, args.seed + 2, device)
 
     eng = EdgeCloudEngine(
         dc, dp, tc, tp,
@@ -368,6 +389,7 @@ def main(argv=None):
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"summary": s, "args": vars(args)}, f, indent=1)
+    return rounds
 
 
 if __name__ == "__main__":

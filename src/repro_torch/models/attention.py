@@ -21,9 +21,17 @@ int8 caches are dequantized in bf16 before ``_extend_core``
 
 The extend math ``_extend_core`` contracts bf16 operands with float32
 accumulation and keeps float32 scores, as the reference's
-``preferred_element_type=float32`` does: the bf16 operands are widened to
-float32 before the product (a product of two bf16 values is exact in
-float32), so the scores are never rounded to bf16.
+``preferred_element_type=float32`` does.  On the card the cache is read
+in place, in its own dtype, by cuBLAS batched products with float32
+output, so no float32 copy of it is made (the reference forbids one: 2x
+cache bytes of temporaries); on the CPU the operands are widened to
+float32 before the product.  A product of two bf16 values is exact in
+float32, so the two differ only in the order of the sums.
+
+``attn_full`` is the train path: the whole sequence, causal, no cache;
+with gradients on, each query chunk of ``masked_attention`` is
+checkpointed (its scores are recomputed in the backward), as the
+reference's ``jax.checkpoint(chunk)``.
 """
 from __future__ import annotations
 
@@ -31,11 +39,12 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.slq import reciprocal
 from repro_torch.core.sqs import softmax
-from repro_torch.models.layers import frozen, rope_apply_by_cfg
+from repro_torch.models.layers import param, rope_apply_by_cfg
 
 NEG_INF = -1e30
 
@@ -69,28 +78,31 @@ class Attention(nn.Module):
         super().__init__()
         d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, \
             cfg.n_kv_heads
-        self.w_q = frozen(d, nq, hd, dtype=dtype, device=device)
-        self.w_k = frozen(d, nkv, hd, dtype=dtype, device=device)
-        self.w_v = frozen(d, nkv, hd, dtype=dtype, device=device)
-        self.w_o = frozen(nq, hd, d, dtype=dtype, device=device)
+        self.w_q = param(d, nq, hd, dtype=dtype, device=device)
+        self.w_k = param(d, nkv, hd, dtype=dtype, device=device)
+        self.w_v = param(d, nkv, hd, dtype=dtype, device=device)
+        self.w_o = param(nq, hd, d, dtype=dtype, device=device)
         if cfg.qkv_bias:
-            self.b_q = frozen(nq, hd, dtype=dtype, device=device, fill=0.0)
-            self.b_k = frozen(nkv, hd, dtype=dtype, device=device, fill=0.0)
-            self.b_v = frozen(nkv, hd, dtype=dtype, device=device, fill=0.0)
+            self.b_q = param(nq, hd, dtype=dtype, device=device, fill=0.0)
+            self.b_k = param(nkv, hd, dtype=dtype, device=device, fill=0.0)
+            self.b_v = param(nkv, hd, dtype=dtype, device=device, fill=0.0)
         else:
             self.b_q = self.b_k = self.b_v = None
 
 
 def _proj(x, w):
-    """einsum("bsd,dnh->bsnh") as one matrix product."""
+    """einsum("bsd,dnh->bsnh") as one matrix product, the weight cast to
+    the activations' dtype."""
     d, n, h = w.shape
-    return (x @ w.reshape(d, n * h)).reshape(x.shape[:-1] + (n, h))
+    return (x @ w.to(x.dtype).reshape(d, n * h)).reshape(
+        x.shape[:-1] + (n, h))
 
 
 def _out(o, w):
     """einsum("bsnh,nhd->bsd")."""
     n, h, d = w.shape
-    return o.reshape(o.shape[:-2] + (n * h,)) @ w.reshape(n * h, d)
+    return o.reshape(o.shape[:-2] + (n * h,)) @ \
+        w.to(o.dtype).reshape(n * h, d)
 
 
 def _inv_sqrt(hd: int, device):
@@ -104,9 +116,9 @@ def _qkv(cfg, p: Attention, x, positions):
     k = _proj(x, p.w_k)
     v = _proj(x, p.w_v)
     if p.b_q is not None:
-        q = q + p.b_q
-        k = k + p.b_k
-        v = v + p.b_v
+        q = q + p.b_q.to(x.dtype)
+        k = k + p.b_k.to(x.dtype)
+        v = v + p.b_v.to(x.dtype)
     return (rope_apply_by_cfg(cfg, q, positions),
             rope_apply_by_cfg(cfg, k, positions), v)
 
@@ -120,10 +132,22 @@ def _pick_chunk(S: int, target: int = 512) -> int:
     return max(c, 1)
 
 
+def _attend_chunk(qc, qp, kf, vf, k_pos, scale, causal: bool):
+    """One query chunk qc (B, C, nkv, qpk, hd) at positions qp (B, C)
+    against the whole float32 K/V."""
+    s = torch.einsum("bckgh,bskh->bkgcs", qc.float() * scale, kf)
+    if causal:
+        rel = qp[:, None, None, :, None] >= k_pos[:, None, None, None, :]
+        s = torch.where(rel, s, NEG_INF)
+    p = softmax(s)
+    return torch.einsum("bkgcs,bskh->bckgh", p, vf).to(qc.dtype)
+
+
 def masked_attention(q, k, v, q_pos, k_pos, causal: bool):
     """q: (B, S, nq, hd), k/v: (B, Sk, nkv, hd), absolute positions
     (B, S) / (B, Sk).  Query-chunked so no (S, S) score tensor is built
-    at once.  Returns (B, S, nq, hd)."""
+    at once; with gradients on, each chunk is checkpointed.  Returns
+    (B, S, nq, hd)."""
     B, S, nq, hd = q.shape
     nkv = k.shape[2]
     qpk = nq // nkv
@@ -133,14 +157,13 @@ def masked_attention(q, k, v, q_pos, k_pos, causal: bool):
     C = _pick_chunk(S)
     outs = []
     for c0 in range(0, S, C):
-        qc = qg[:, c0:c0 + C].float() * scale           # (B, C, nkv, qpk, hd)
-        s = torch.einsum("bckgh,bskh->bkgcs", qc, kf)
-        if causal:
-            qp = q_pos[:, c0:c0 + C]
-            rel = qp[:, None, None, :, None] >= k_pos[:, None, None, None, :]
-            s = torch.where(rel, s, NEG_INF)
-        p = softmax(s)
-        outs.append(torch.einsum("bkgcs,bskh->bckgh", p, vf).to(q.dtype))
+        args = (qg[:, c0:c0 + C], q_pos[:, c0:c0 + C], kf, vf, k_pos, scale,
+                causal)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_attend_chunk, *args,
+                                   use_reentrant=False))
+        else:
+            outs.append(_attend_chunk(*args))
     return torch.cat(outs, 1).reshape(B, S, nq, hd)
 
 
@@ -240,6 +263,13 @@ def prefill_into_pages(paged, dense_kv, pt_row, length: int):
 # ----------------------------------------------------------------------
 # Forward
 # ----------------------------------------------------------------------
+def attn_full(cfg: ModelConfig, p: Attention, x, positions):
+    """Train path: the full sequence, causal, no cache returned."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    o = masked_attention(q, k, v, positions, positions, causal=True)
+    return _out(o, p.w_o)
+
+
 def attn_prefill(cfg: ModelConfig, p: Attention, x, positions):
     """Causal attention over the prompt; returns (out, cache leaves):
     {"k", "v"}, or int8 {"k", "v", "k_scale", "v_scale"}."""
@@ -253,6 +283,31 @@ def attn_prefill(cfg: ModelConfig, p: Attention, x, positions):
     return _out(o, p.w_o), {"k": k, "v": v}
 
 
+def _cache_bmm(a, c, transpose: bool):
+    """Per (row, KV head) products with the cache c (B, Sc, nkv, hd) read
+    in place: a (B, nkv, R, hd) @ c^T -> (B, nkv, R, Sc) when
+    ``transpose``, else a (B, nkv, R, Sc) @ c -> (B, nkv, R, hd); float32
+    out.  One cuBLAS batched product per entry of the shorter of the row
+    and head axes, batched over the other: each (row, head) slice of the
+    cache is a strided matrix, so nothing is copied, and bf16 operands
+    sum into float32 (``out_dtype``)."""
+    kw = {} if c.dtype == torch.float32 else {"out_dtype": torch.float32}
+    B, nkv = a.shape[:2]
+    if B <= nkv:
+        parts = []
+        for b in range(B):
+            cb = c[b].transpose(0, 1)                     # (nkv, Sc, hd)
+            parts.append(torch.bmm(a[b], cb.transpose(1, 2) if transpose
+                                   else cb, **kw))
+        return torch.stack(parts, 0)
+    parts = []
+    for h in range(nkv):
+        ch = c[:, :, h]                                   # (B, Sc, hd)
+        parts.append(torch.bmm(a[:, h], ch.transpose(1, 2) if transpose
+                               else ch, **kw))
+    return torch.stack(parts, 1)
+
+
 def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, dt):
     """L queries against the whole (gathered) cache ``ck``/``cv``
     (B, Sc, nkv, hd), causally masked by absolute position.  Both cache
@@ -264,14 +319,22 @@ def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, dt):
     qpk = nq // nkv
     qg = q.reshape(B, L, nkv, qpk, hd)
     qs = (qg.float() * _inv_sqrt(hd, q.device)).to(ck.dtype)
-    s = torch.einsum("blkgh,bskh->bkgls", qs.float(), ck.float())
+    if ck.is_cuda:
+        a = qs.permute(0, 2, 3, 1, 4).reshape(B, nkv, qpk * L, hd)
+        s = _cache_bmm(a, ck, transpose=True).view(B, nkv, qpk, L, Sc)
+    else:
+        s = torch.einsum("blkgh,bskh->bkgls", qs.float(), ck.float())
     kpos = torch.arange(Sc, device=ck.device)
     valid = kpos[None, None, None, None, :] <= \
         abs_new[:, None, None, :, None]
     s = torch.where(valid, s, NEG_INF)
-    prob = softmax(s)
-    o = torch.einsum("bkgls,bskh->blkgh", prob.to(cv.dtype).float(),
-                     cv.float())
+    prob = softmax(s).to(cv.dtype)
+    if cv.is_cuda:
+        o = _cache_bmm(prob.reshape(B, nkv, qpk * L, Sc), cv,
+                       transpose=False)
+        o = o.view(B, nkv, qpk, L, hd).permute(0, 3, 1, 2, 4)
+    else:
+        o = torch.einsum("bkgls,bskh->blkgh", prob.float(), cv.float())
     return _out(o.reshape(B, L, nq, hd).to(dt), p.w_o)
 
 

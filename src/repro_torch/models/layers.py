@@ -1,11 +1,13 @@
 """Shared layer primitives: RMSNorm, RoPE, SwiGLU MLP, embedding and LM
 head (mirrors ``repro.models.layers``; M-RoPE comes with its family).
 
-Weights are stored in the config's compute dtype (bf16 for the full-size
-configs, float32 for the smoke variants): the reference keeps float32
-masters and casts them to the compute dtype at every use, which computes
-the same thing.  Norm weights, which the reference reads as float32,
-stay float32.
+A serving model stores its weights in the config's compute dtype (bf16
+for the full-size configs, float32 for the smoke variants); a model built
+for training holds float32 masters with gradients on, as the reference's
+parameters are.  Every use casts a weight to the compute dtype, as the
+reference's ``w.astype(dt)`` does; where the dtypes already match (a
+serving model, a float32 variant) the cast returns the weight itself.
+Norm weights, which the reference reads as float32, stay float32.
 """
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ def compute_dtype(cfg: ModelConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def frozen(*shape, dtype, device, fill=None):
-    """An inference-only parameter (no gradient), uninitialised unless
-    ``fill`` is given."""
+def param(*shape, dtype, device, fill=None):
+    """A parameter created without a gradient (a model built for training
+    turns gradients on for all of them), uninitialised unless ``fill`` is
+    given."""
     t = torch.empty(shape, dtype=dtype, device=device)
     if fill is not None:
         t.fill_(fill)
@@ -76,15 +79,16 @@ def rope_apply_by_cfg(cfg: ModelConfig, x, positions):
 class MLP(nn.Module):
     def __init__(self, d_model: int, d_ff: int, dtype, device):
         super().__init__()
-        self.w_gate = frozen(d_model, d_ff, dtype=dtype, device=device)
-        self.w_up = frozen(d_model, d_ff, dtype=dtype, device=device)
-        self.w_down = frozen(d_ff, d_model, dtype=dtype, device=device)
+        self.w_gate = param(d_model, d_ff, dtype=dtype, device=device)
+        self.w_up = param(d_model, d_ff, dtype=dtype, device=device)
+        self.w_down = param(d_ff, d_model, dtype=dtype, device=device)
 
     def forward(self, x):
         dt = x.dtype
-        g = x @ self.w_gate
-        u = x @ self.w_up
-        return (torch.nn.functional.silu(g.float()).to(dt) * u) @ self.w_down
+        g = x @ self.w_gate.to(dt)
+        u = x @ self.w_up.to(dt)
+        return (torch.nn.functional.silu(g.float()).to(dt) * u) @ \
+            self.w_down.to(dt)
 
 
 # ----------------------------------------------------------------------

@@ -1,7 +1,11 @@
 """Top-level model API (mirrors ``repro.models.model``):
 
-    Transformer(cfg, dtype, device="cuda")         -> module (uninitialised;
+    Transformer(cfg, dtype, device="cuda",
+                trainable=False)                   -> module (uninitialised;
                                                      see repro_torch.bridge)
+    param_count(model)                             -> int
+    train_loss(model, batch, remat=True)           -> (loss, metrics)
+    forward_logits(model, tokens)                  -> logits (B, S, V)
     prefill(model, tokens, cache_len)              -> (last_logits, cache)
     extend_step(model, tokens, cache, pos)         -> (logits (B,L,V), cache)
     decode_step(model, token, cache, pos)          -> (logits (B,V), cache)
@@ -15,7 +19,14 @@ A cache is a list with one dict per layer: dense {"k", "v"} of
 holds pools (n_pages + 1, page_size, ...) of the same leaves and its
 slots' "page_table" (B, max_pages).  ``extend_step`` writes into the cache
 in place and dispatches on "page_table"; with L > 1 it is the
-speculative-decoding verification pass.
+speculative-decoding verification pass.  The serve entry points run
+without gradients; ``train_loss`` and ``forward_logits`` run with
+whatever grad mode the caller has.
+
+A model built with ``trainable=True`` holds float32 masters with
+gradients on (the reference's parameters), computing in ``dtype``; a
+serving model stores its weights in ``dtype`` itself, so no float32 copy
+of them exists on a serve path.
 """
 from __future__ import annotations
 
@@ -27,26 +38,30 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (compute_dtype, embed_apply, frozen,
-                                       lm_head_apply, rmsnorm)
-from repro_torch.models.transformer import Block, check_supported
+from repro_torch.models.layers import (compute_dtype, embed_apply,
+                                       lm_head_apply, param, rmsnorm)
+from repro_torch.models.transformer import Block, apply_train, \
+    check_supported
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype=None, device="cuda"):
+    def __init__(self, cfg: ModelConfig, dtype=None, device="cuda",
+                 trainable: bool = False):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype or compute_dtype(cfg)
+        store = torch.float32 if trainable else self.dtype
         d = cfg.d_model
-        self.embedding = frozen(cfg.vocab, d, dtype=self.dtype, device=device)
+        self.embedding = param(cfg.vocab, d, dtype=store, device=device)
         self.lm_head = None if cfg.tie_embeddings else \
-            frozen(d, cfg.vocab, dtype=self.dtype, device=device)
-        self.layers = nn.ModuleList(Block(cfg, self.dtype, device)
+            param(d, cfg.vocab, dtype=store, device=device)
+        self.layers = nn.ModuleList(Block(cfg, store, device)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = frozen(d, dtype=torch.float32, device=device,
-                                 fill=1.0)
+        self.final_norm = param(d, dtype=torch.float32, device=device,
+                                fill=1.0)
+        self.requires_grad_(trainable)
 
     @property
     def device(self):
@@ -57,11 +72,49 @@ class Transformer(nn.Module):
         return lm_head_apply(self.embedding, self.lm_head, x).float()
 
 
+def param_count(model: Transformer) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
 def _positions(batch: int, seq: int, start, device):
     p = torch.arange(seq, dtype=torch.int64, device=device)[None]
     if isinstance(start, int):
         return (p + start).expand(batch, seq)
     return p + start.to(torch.int64)[:, None]
+
+
+def train_loss(model: Transformer, batch, remat: bool = True):
+    """batch: {"tokens": (B, S+1) int[, "loss_mask": (B, S)]}.  Returns
+    (loss, {"ce", "aux", "accuracy"}): the masked mean next-token cross
+    entropy over float32 logits plus the summed MoE aux loss; MoE layers
+    drop tokens past capacity, as the reference trains."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
+    B, S = inputs.shape
+    x = embed_apply(model.embedding, inputs, model.dtype)
+    x, aux = apply_train(model.layers, x,
+                         _positions(B, S, 0, tokens.device), remat=remat)
+    logits = model.head(x)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = mask.sum().clamp_min(1.0)
+    ce = (nll * mask).sum() / denom
+    # argmax ties go to the first index, in torch as in jnp
+    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    return ce + aux, {"ce": ce, "aux": aux, "accuracy": acc}
+
+
+def forward_logits(model: Transformer, tokens):
+    """Teacher-forced float32 logits (B, S, V), the oracle of the serve
+    path: MoE layers run dropless, as inference routes."""
+    B, S = tokens.shape
+    x = embed_apply(model.embedding, tokens, model.dtype)
+    x, _ = apply_train(model.layers, x, _positions(B, S, 0, tokens.device),
+                       remat=False, dropless=True)
+    return model.head(x)
 
 
 @torch.no_grad()

@@ -2,15 +2,18 @@
 ``repro.models.transformer`` for GQA attention configs with a dense or a
 mixture-of-experts channel mixer).  The reference scans
 period-stacked parameters with ``jax.lax.scan``; the port keeps one
-module per layer in an ``nn.ModuleList`` and loops in Python."""
+module per layer in an ``nn.ModuleList`` and loops in Python; in training
+(``apply_train``) each layer is checkpointed, as the reference checkpoints
+each scanned period."""
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import MLP, frozen, rmsnorm
+from repro_torch.models.layers import MLP, param, rmsnorm
 from repro_torch.models.moe import MoE
 
 
@@ -20,13 +23,26 @@ class Block(nn.Module):
         d = cfg.d_model
         self.cfg = cfg
         # norm weights stay float32: the reference reads them as float32
-        self.norm1 = frozen(d, dtype=torch.float32, device=device, fill=1.0)
+        self.norm1 = param(d, dtype=torch.float32, device=device, fill=1.0)
         self.attn = attn.Attention(cfg, dtype, device)
-        self.norm2 = frozen(d, dtype=torch.float32, device=device, fill=1.0)
+        self.norm2 = param(d, dtype=torch.float32, device=device, fill=1.0)
         if cfg.ffn_pattern == ("moe",):
             self.mlp, self.moe = None, MoE(cfg, dtype, device)
         else:
             self.mlp, self.moe = MLP(d, cfg.d_ff, dtype, device), None
+
+    def train_forward(self, x, positions, dropless: bool = False):
+        """The train-mode block over the full sequence: returns (x, aux
+        loss).  The MoE mixer drops tokens past capacity unless
+        ``dropless`` (the teacher-forced oracle never drops)."""
+        h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
+        x = x + attn.attn_full(self.cfg, self.attn, h, positions)
+        h = rmsnorm(x, self.norm2, self.cfg.rms_eps)
+        if self.moe is None:
+            return x + self.mlp(h), torch.zeros((), device=x.device)
+        B, S, D = h.shape
+        y, aux = self.moe.tokens(h.reshape(B * S, D), dropless)
+        return x + y.reshape(B, S, D), aux
 
     def prefill(self, x, positions):
         """Returns (x, {"k", "v"}) for the prompt."""
@@ -43,6 +59,22 @@ class Block(nn.Module):
     def _ffn(self, x):
         ffn = self.mlp if self.moe is None else self.moe
         return x + ffn(rmsnorm(x, self.norm2, self.cfg.rms_eps))
+
+
+def apply_train(layers, x, positions, remat: bool = True,
+                dropless: bool = False):
+    """The layer stack in train mode: returns (x, summed aux loss).  With
+    ``remat`` each layer is checkpointed (its activations recomputed in
+    the backward), as the reference's ``jax.checkpoint(period_fn)``."""
+    aux = torch.zeros((), device=x.device)
+    for blk in layers:
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(blk.train_forward, x, positions, dropless,
+                              use_reentrant=False)
+        else:
+            x, a = blk.train_forward(x, positions, dropless)
+        aux = aux + a
+    return x, aux
 
 
 def check_supported(cfg: ModelConfig):

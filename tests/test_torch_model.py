@@ -108,7 +108,8 @@ def test_init_params_distributions():
     assert torch.equal(m.embedding, m2.embedding)      # seeded, repeatable
 
 
-@pytest.mark.parametrize("name", configs.ASSIGNED)
+@pytest.mark.parametrize("name", configs.ASSIGNED
+                         + ["gptneo-125m", "gptneo-1.3b"])
 def test_config_and_smoke_logits_match_reference(name):
     full = (jconfigs.get_config(name), configs.get_config(name))
     smoke = tuple(c.smoke_variant(f) for c, f in zip((jconfigs, configs),

@@ -73,7 +73,7 @@ def test_moe_tokens_match_reference(case, T):
         (T, jc.d_model)).astype(np.float32)
     probs = jax.nn.softmax(jnp.asarray(x) @ p["router"], axis=-1)
     _, ref_idx = jax.lax.top_k(probs, jc.moe_top_k)
-    gate, idx = m.route(torch.from_numpy(x))
+    gate, idx, _ = m.route(torch.from_numpy(x))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
     assert np.allclose(gate.sum(-1).numpy(), 1.0, atol=1e-6)
     y_ref, _ = jmoe.moe_apply(jc, p, jnp.asarray(x)[None], dropless=True)
@@ -89,7 +89,7 @@ def test_route_breaks_ties_toward_the_lower_index():
     m = MoE(tc, torch.float32, "cpu")
     with torch.no_grad():
         m.router.zero_()
-    _, idx = m.route(torch.ones((3, tc.d_model)))
+    _, idx, _ = m.route(torch.ones((3, tc.d_model)))
     assert idx.tolist() == [[0, 1, 2, 3]] * 3
 
 
