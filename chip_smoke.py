@@ -75,9 +75,32 @@ Phases:
      the phase-3 settings (accepted tokens in every method, both SQS
      kernels launched at Vp 50304) and a short pipelined trace.
 
+ 12. the SSM and hybrid family, after the pair's models are freed: (a)
+     full-width ``xlstm-1.3b`` (48 layers, 7 mLSTM : 1 sLSTM, d 2048, 4
+     heads, mLSTM width 4096, V 50304) with its 2x draft, seeded bf16
+     weights, fixed-batch rounds of all four methods at the phase-3
+     settings, both SQS kernels against their twins at the draft's
+     next-step logits, t_slm / t_llm / accepted tokens, one K-SQS draft
+     call under torch.profiler; (b) rollback after uncompressed rounds
+     with every draft sent (rows accept tokens; the phase fails if none
+     does): at full width in bf16 and then in float32, each row's
+     rolled-back target and draft states against a fresh prefill of its
+     verified prefix, the first layer within ROLLBACK_RTOL_FIRST and the
+     state one token short outside it, and in float32 every layer within
+     ROLLBACK_FLOOR_MULT times its batch floor and the next-token argmax
+     equal; and the reference's check (next-token logits of the two
+     caches, equal argmax and 3e-4) at the float32 smoke variants of
+     ``xlstm-1.3b`` and ``jamba-1.5-large-398b``; (c) the
+     ``jamba-1.5-large-398b`` smoke pair served as a 4-request lockstep
+     trace, dense and paged with equal streams, and one full-width Mamba
+     layer (d 8192, d_inner 16384, d_state 16) at B 4 x S 16 in float32
+     and bf16: the sequence form with its trajectory against the step
+     loop; then a pipelined trace and a TCP handshake with a stateful
+     target, each refused, with the peak memory of the phase.
+
 Every phase that drives a path sets the kernels' launch counts to 0
 just before it and reads them just after; the SQS rows of the kernels
-line add the launches of phases 3, 5, 8, 9, 10 and 11.
+line add the launches of phases 3, 5, 8, 9, 10, 11 and 12.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -671,7 +694,7 @@ def phase_main_path(dev, tc, dc):
         check(n_pay == BATCH * n_rounds,
               f"{method}: {n_pay} payloads")
         lg = edge_logits(eng)
-        lt, _ = model_mod.extend_step(eng.cloud.model,
+        lt, _, _ = model_mod.extend_step(eng.cloud.model,
                                       eng.cloud.x_last[:, None],
                                       eng.cloud.tcache, eng.cloud.pos)
         check(bool(torch.isfinite(lg).all() and torch.isfinite(lt).all()),
@@ -1862,6 +1885,514 @@ def phase_pair(dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 12: the SSM and hybrid family
+# ----------------------------------------------------------------------
+SSM_ARCH, HYBRID_ARCH = "xlstm-1.3b", "jamba-1.5-large-398b"
+# rolled-back caches against a fresh prefill of the verified prefix,
+# target and draft, after uncompressed rounds of the pair with a budget
+# that lets every draft go out (rows accept 0..L_max tokens; K-SQS on
+# random weights accepts none, and a check on none sees only snapshot 0)
+ROLLBACK_BUDGET = 1e9
+# the reference's float32 bound on the next-token logits
+# (tests/test_engine.py) at the smoke variants
+ROLLBACK_ATOL_F32 = 3e-4
+# full width: the first stateful layer's state within ROLLBACK_RTOL_FIRST
+# (max |difference| / max |fresh| over its leaves), and the state one token
+# short outside it.  Deeper down, 48 layers of random weights grow a GEMM's
+# rounding (other row counts round otherwise); the same prefix prefilled
+# at batch 1 and at batch 4 differs by the batch floor.  In bf16 the logits
+# decorrelate (their argmax differs at the floor), so deeper layers and
+# the logits are printed only; in float32 every stateful layer must lie
+# within ROLLBACK_FLOOR_MULT times its floor (at least ROLLBACK_FLOOR_MIN)
+# and the argmax must agree
+ROLLBACK_RTOL_FIRST = 1e-2
+ROLLBACK_FLOOR_MULT, ROLLBACK_FLOOR_MIN = 10.0, 1e-6
+# one full-width Mamba layer, sequence form against the step loop: a bound
+# on max |difference| / max |reference| per leaf, float32 and bf16
+MAMBA_B, MAMBA_S = 4, 16
+MAMBA_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def stateful_logits(model, cache, token, pos):
+    """Next-token logits from a cache without advancing it: the step
+    replaces stateful layers' states in a copy of the layer list, and
+    writes KV past the committed positions."""
+    from repro_torch.models import model as model_mod
+    logits, _ = model_mod.decode_step(model, token, list(cache), pos)
+    return logits
+
+
+def rollback_engine(dc, dp, tc, tp, dev, prompts, l_max, label):
+    """``ROUNDS`` uncompressed rounds of the pair with every draft sent;
+    fails unless some row accepted a token.  Returns the engine."""
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig)
+    eng = EdgeCloudEngine(dc, dp, tc, tp, MethodConfig("uncompressed"),
+                          EngineConfig(L_max=l_max,
+                                       bit_budget=ROLLBACK_BUDGET),
+                          seed=0, device=dev)
+    eng.prefill(prompts)
+    acc = [eng.run_round()["n_accept"].tolist() for _ in range(ROUNDS)]
+    print(f"  {label}: accepted tokens a row, round by round {acc}")
+    check(any(t > 0 for r in acc for t in r), f"{label}: no row accepted "
+          f"a token, so the rollback check would see only snapshot 0")
+    return eng
+
+
+def verified_prefix(eng, prompts, b, label):
+    """Row ``b``'s verified prefix (1, pos) and the token after it."""
+    import torch
+    dev = eng.cloud.model.device
+    seq = [int(t) for t in prompts[b]] + eng.out_tokens[b]
+    prefix = torch.tensor([seq[:-1]], device=dev)
+    pos = int(eng.pos[b])
+    check(pos == prefix.shape[1] == int(eng.edge.pos[b]),
+          f"{label}: row {b} pos {pos} != verified prefix {prefix.shape[1]}")
+    return prefix, torch.tensor([seq[-1]], device=dev), \
+        torch.tensor([pos], device=dev)
+
+
+def row_cache(cache, b):
+    return [{n: t[b:b + 1] for n, t in c.items()} for c in cache]
+
+
+def sides(eng):
+    return (("target", eng.cloud.model, eng.cloud.tcache),
+            ("draft", eng.edge.model, eng.edge.dcache))
+
+
+def rollback_check(eng, prompts, label, failures, atol):
+    """Each row's rolled-back target and draft caches against a fresh
+    prefill of its verified prefix (tests/test_engine.py's rollback test):
+    the argmax of the next-token logits equal, and max |difference| within
+    ``atol``; a row that is not is added to ``failures`` (phase 12 fails
+    on them after its other parts ran).  Returns the largest difference."""
+    from repro_torch.models import model as model_mod
+    worst = 0.0
+    for b in range(len(prompts)):
+        prefix, nxt, at = verified_prefix(eng, prompts, b, label)
+        for side, model, cache in sides(eng):
+            _, fresh = model_mod.prefill(model, prefix,
+                                         cache_len=prefix.shape[1] + 8)
+            ref = stateful_logits(model, fresh, nxt, at)
+            got = stateful_logits(model, row_cache(cache, b), nxt, at)
+            err = float((got - ref).abs().max())
+            top2 = ref[0].topk(2).values
+            print(f"    {label} {side} row {b}: {prefix.shape[1]} positions "
+                  f"kept; max |logit difference| {err:.3g} (bound "
+                  f"{atol:.3g}; max |logit| {float(ref.abs().max()):.3g}, "
+                  f"top-2 gap {float(top2[0] - top2[1]):.3g}); argmax "
+                  f"{int(got.argmax())} vs {int(ref.argmax())}")
+            if err > atol:
+                failures.append(f"{label} {side}: row {b} rolled-back "
+                                f"logits differ by {err:.3g} > {atol:.3g}")
+            if int(got.argmax()) != int(ref.argmax()):
+                failures.append(f"{label} {side}: row {b} argmax differs")
+            worst = max(worst, err)
+    return worst
+
+
+def state_diff(got, ref):
+    """max |got - ref| / max |ref| over one stateful layer's leaves."""
+    return max(float((got[n].float() - ref[n].float()).abs().max())
+               / max(float(ref[n].float().abs().max()), 1e-30) for n in ref)
+
+
+def rollback_state_check(eng, prompts, failures, label, whole_stack):
+    """Full width: each row's rolled-back target and draft states against
+    a fresh prefill of its verified prefix, layer by layer, beside the
+    batch floor (the same prefix prefilled at batch 1 and at batch B).
+    The first stateful layer must agree within ROLLBACK_RTOL_FIRST, and
+    the state one token short (what an off-by-one rollback keeps) must
+    not.  With ``whole_stack`` (float32) every stateful layer must lie
+    within ROLLBACK_FLOOR_MULT times its floor and the next-token argmax
+    must agree.  Returns the largest ratio of a layer's difference to its
+    floor."""
+    from repro_torch.models import model as model_mod
+    B, worst = len(prompts), 0.0
+    for b in range(B):
+        prefix, nxt, at = verified_prefix(eng, prompts, b, label)
+        for side, model, cache in sides(eng):
+            layers = [i for i, blk in enumerate(model.layers)
+                      if blk.stateful]
+            first = layers[0]
+            _, fresh = model_mod.prefill(model, prefix)
+            _, short = model_mod.prefill(model, prefix[:, :-1])
+            _, wide = model_mod.prefill(model,
+                                        prefix.expand(B, -1).contiguous())
+            row, wide0 = row_cache(cache, b), row_cache(wide, 0)
+            errs = {i: state_diff(row[i], fresh[i]) for i in layers}
+            floors = {i: state_diff(wide0[i], fresh[i]) for i in layers}
+            ratio = {i: errs[i] / max(floors[i], ROLLBACK_FLOOR_MIN)
+                     for i in layers}
+            top = max(layers, key=ratio.get)
+            off = state_diff(short[first], fresh[first])
+            ref = stateful_logits(model, fresh, nxt, at)
+            got = stateful_logits(model, row, nxt, at)
+            flo = stateful_logits(model, wide0, nxt, at)
+            top2 = ref[0].topk(2).values
+            print(f"    {label} {side} row {b}: {prefix.shape[1]} positions "
+                  f"kept; layer {first} state differs by {errs[first]:.3g} "
+                  f"(bound {ROLLBACK_RTOL_FIRST}; batch floor "
+                  f"{floors[first]:.3g}; one token short {off:.3g}); "
+                  f"largest difference / floor over {len(layers)} layers "
+                  f"{ratio[top]:.3g} at layer {top} ({errs[top]:.3g} / "
+                  f"{floors[top]:.3g}); layers " + ", ".join(
+                      f"{i}: {errs[i]:.3g} (floor {floors[i]:.3g})"
+                      for i in sorted({layers[len(layers) // 2],
+                                       layers[-1]}))
+                  + f"; next-token logits differ by "
+                  f"{float((got - ref).abs().max()):.3g} (floor "
+                  f"{float((flo - ref).abs().max()):.3g}, max |logit| "
+                  f"{float(ref.abs().max()):.3g}, top-2 gap "
+                  f"{float(top2[0] - top2[1]):.3g}), argmax "
+                  f"{int(got.argmax())} vs {int(ref.argmax())} (floor "
+                  f"{int(flo.argmax())})")
+            where = f"{label} {side}: row {b}"
+            if errs[first] > ROLLBACK_RTOL_FIRST:
+                failures.append(f"{where} layer {first} rolled-back state "
+                                f"differs by {errs[first]:.3g}")
+            if off <= ROLLBACK_RTOL_FIRST:
+                failures.append(f"{where} one token short differs by only "
+                                f"{off:.3g}: the bound cannot see an "
+                                f"off-by-one rollback")
+            if whole_stack and ratio[top] > ROLLBACK_FLOOR_MULT:
+                failures.append(f"{where} layer {top} differs by "
+                                f"{ratio[top]:.3g} times its batch floor")
+            if whole_stack and int(got.argmax()) != int(ref.argmax()):
+                failures.append(f"{where} next-token argmax differs")
+            worst = max(worst, ratio[top])
+    return worst
+
+
+def profile_stateful_draft(eng):
+    """``profile_draft`` on a stateful draft: the profiled calls advance
+    the draft's recurrent state, so the state is put back after them."""
+    saved = list(eng.edge.dcache)
+    try:
+        profile_draft(eng)
+    finally:
+        eng.edge.dcache = saved
+
+
+def phase_ssm_full_width(dev, failures):
+    """(a) xlstm-1.3b at full width with its 2x draft: fixed-batch rounds
+    of all four methods at the phase-3 settings, both SQS kernels held
+    against their twins at the draft's next-step logits, one K-SQS draft
+    call under torch.profiler; (b) uncompressed rounds of the pair in
+    bf16 and then in float32, each row's rolled-back target and draft
+    states against a fresh prefill of its verified prefix.  Returns the
+    SQS launches of the path."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig, summarize)
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ref, sqs_fused as k
+    from repro_torch.kernels.ops import pad_logits
+    t0 = time.perf_counter()
+    tc = configs.get_config(SSM_ARCH)
+    dc = configs.draft_variant(tc, 2)
+    tp = seeded_model(tc, 1, dev)
+    dp = seeded_model(dc, 2, dev)
+    torch.cuda.synchronize()
+    n_t = sum(p.numel() for p in tp.parameters())
+    n_d = sum(p.numel() for p in dp.parameters())
+    print(f"phase 12 (a): {tc.name} ({tc.n_layers} layers "
+          f"{'/'.join(tc.block_pattern[:1] + tc.block_pattern[-1:])} 7:1, "
+          f"d {tc.d_model}, {tc.n_heads} heads, mLSTM width "
+          f"{int(tc.mlstm_proj_factor * tc.d_model)}, V {tc.vocab}; "
+          f"{n_t / 1e9:.3f} B params, {tc.param_count() / 1e9:.3f} B by "
+          f"param_count) <- {dc.name} ({dc.n_layers} layers, d "
+          f"{dc.d_model}; {n_d / 1e9:.3f} B params), {tp.dtype} weights "
+          f"built in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    data = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77))
+    prompts = data.sample(BATCH, PROMPT_LEN)[:, :-1]
+    launches = {name: 0 for name in k.LAUNCHES}
+    engines = {}
+    for method, n_rounds in (("ksqs", ROUNDS), ("csqs", ROUNDS),
+                             ("qs", 1), ("uncompressed", 1)):
+        eng = EdgeCloudEngine(dc, dp, tc, tp,
+                              MethodConfig(method, K=64, ell=100),
+                              EngineConfig(L_max=L_MAX), seed=0, device=dev)
+        k.reset_launches()
+        t1 = time.perf_counter()
+        rounds, toks = eng.run(prompts, n_rounds)
+        got = dict(k.LAUNCHES)
+        steps = n_rounds * (L_MAX + 1)
+        want = {"sqs_fused": steps if method in ("ksqs", "csqs") else 0,
+                "topk_threshold": steps if method == "ksqs" else 0}
+        check(got == want, f"ssm {method}: launches {got} != {want}")
+        for name in launches:
+            launches[name] += got[name]
+        for row in toks:
+            check(len(row) >= n_rounds
+                  and all(0 <= t < tc.vocab for t in row),
+                  f"ssm {method}: tokens {row}")
+        for r in rounds:
+            for data_ in r["packed"].values():
+                p = eng.fmt.unpack_draft(data_)
+                check(p.n_drafts >= 1, f"ssm {method}: empty payload")
+                if p.probs is not None:
+                    check(all(np.isfinite(pr).all() for pr in p.probs),
+                          f"ssm {method}: raw probabilities not finite")
+                else:
+                    check(all(sum(c) == 100 for c in p.counts),
+                          f"ssm {method}: transmitted sum b != ell")
+        s = summarize(rounds)
+        acc = [float(r["n_accept"].mean()) for r in rounds]
+        print(f"  {method}/v1: {n_rounds} rounds in "
+              f"{time.perf_counter() - t1:.1f} s; mean K "
+              f"{s['mean_K']:.1f}; accepted tokens a row a round "
+              + " ".join(f"{a:.2f}" for a in acc) + f"; launches {got}")
+        print("    t_slm ms " + " ".join(f"{r['t_slm'] * 1e3:.2f}"
+                                           for r in rounds)
+              + " | t_llm ms " + " ".join(f"{r['t_llm'] * 1e3:.2f}"
+                                          for r in rounds))
+        lg = stateful_logits(eng.edge.model, eng.edge.dcache,
+                             eng.edge.x_last, eng.edge.pos)
+        lt = stateful_logits(eng.cloud.model, eng.cloud.tcache,
+                             eng.cloud.x_last, eng.cloud.pos)
+        check(bool(torch.isfinite(lg).all() and torch.isfinite(lt).all()),
+              f"ssm {method}: NaN/inf logits")
+        engines[method] = eng
+    print(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+          f"allocated over the four methods")
+    profile_stateful_draft(engines["ksqs"])
+    # both SQS kernels against their twins at the draft's next-step logits
+    for method in ("ksqs", "csqs"):
+        eng = engines[method]
+        lp = pad_logits(stateful_logits(eng.edge.model, eng.edge.dcache,
+                                        eng.edge.x_last, eng.edge.pos))[0]
+        if method == "csqs":
+            beta2 = torch.stack([eng.edge.beta, eng.edge.beta], -1) \
+                .contiguous()
+            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
+                                 "ssm sqs_fused at the draft's logits")
+        else:
+            tau = k.topk_threshold(lp, 64, inv_temp=1.0)
+            tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), 64)
+            nd, nb = compare_sqs(lp, tau, 1.0, 100, 64,
+                                 "ssm sqs_topk at the draft's logits", tau_r)
+        check(nb == 0, f"ssm {method}: {nb} rows differ from the twin "
+              f"outside the boundary rule")
+        print(f"  {method} kernels at the draft's next-step logits (B="
+              f"{lp.shape[0]}, Vp={lp.shape[1]}): {nd} rows differ from the "
+              f"twin, {nb} unexcused")
+    del engines, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 12 (b): rolled-back target and draft caches against a "
+          "fresh prefill of the verified prefix")
+    for dtype in (torch.bfloat16, torch.float32):
+        if dtype != tp.dtype:
+            del tp, dp
+            gc.collect()
+            torch.cuda.empty_cache()
+            tp = seeded_model(tc, 1, dev, dtype=dtype)
+            dp = seeded_model(dc, 2, dev, dtype=dtype)
+        label = f"full width {str(dtype).split('.')[-1]}"
+        eng = rollback_engine(dc, dp, tc, tp, dev, prompts, L_MAX, label)
+        worst = rollback_state_check(eng, prompts, failures, label,
+                                     whole_stack=dtype == torch.float32)
+        print(f"  {label}: largest layer difference / batch floor "
+              f"{worst:.3g} (bound {ROLLBACK_FLOOR_MULT} in float32); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+        del eng
+    del tp, dp
+    return launches
+
+
+def phase_ssm_smoke_rollback(dev, failures):
+    """The rollback check at the float32 smoke variants of both configs
+    on the card, at the reference's 3e-4 (its test's seeds and shapes:
+    L_max 3, two rows of six prompt tokens), after uncompressed rounds."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        tc = configs.smoke_variant(configs.get_config(arch))
+        dc = configs.draft_variant(tc, 2)
+        gen = torch.Generator().manual_seed(4)
+        prompts = torch.randint(0, tc.vocab, (2, 6), generator=gen)
+        label = f"{tc.name} f32"
+        eng = rollback_engine(dc, seeded_model(dc, 3, dev), tc,
+                              seeded_model(tc, 2, dev), dev,
+                              prompts, 3, label)
+        worst = rollback_check(eng, prompts.tolist(), label, failures,
+                               atol=ROLLBACK_ATOL_F32)
+        print(f"  {label}: largest difference {worst:.3g} "
+              f"(bound {ROLLBACK_ATOL_F32})")
+
+
+def phase_hybrid(dev):
+    """(c) the jamba-1.5-large-398b smoke pair served as a 4-request
+    lockstep trace, dense and paged (equal streams), and one full-width
+    Mamba layer: the sequence form with its trajectory against the step
+    loop.  Returns the SQS launches of the trace."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import init_params, seeded_model
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.models import ssm
+    t0 = time.perf_counter()
+    tc = configs.smoke_variant(configs.get_config(HYBRID_ARCH))
+    dc = configs.draft_variant(tc, 2)
+    tp, dp = seeded_model(tc, 1, dev), seeded_model(dc, 2, dev)
+    print(f"phase 12 (c): {tc.name} ({tc.n_layers} layers "
+          f"{'/'.join(tc.block_pattern)}, ffn {'/'.join(tc.ffn_pattern)}, "
+          f"d {tc.d_model}, V {tc.vocab}, float32) <- {dc.name}")
+    trace = dict(n_requests=4, rate_rps=4.0, prompt_len=PROMPT_LEN,
+                 min_new_tokens=6, max_new_tokens=10, vocab=tc.vocab, seed=5)
+    k.reset_launches()
+    dense = serve_run("jamba smoke dense lockstep", dc, dp, tc, tp, dev,
+                      trace)
+    paged = serve_run("jamba smoke paged(16) lockstep", dc, dp, tc, tp, dev,
+                      trace, page_size=PAGE)
+    launches = dict(k.LAUNCHES)
+    check(launches["sqs_fused"] > 0, "jamba serving never launched "
+          "sqs_fused")
+    check(dense == paged, "jamba paged streams differ from dense")
+    print(f"  streams equal dense and paged: {len(dense)} requests, "
+          f"{sum(map(len, dense.values()))} tokens; launches {launches}")
+    full = configs.get_config(HYBRID_ARCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        m = ssm.Mamba(full, dtype, dev)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            # the reference's init: constants and 1/sqrt(fan_in) normals
+            for leaf, fan in (("in_proj", full.d_model),
+                              ("conv_w", full.mamba_d_conv),
+                              ("x_proj", full.d_inner),
+                              ("dt_proj", full.dt_rank),
+                              ("out_proj", full.d_inner)):
+                prm = getattr(m, leaf)
+                prm.copy_(torch.randn(prm.shape, generator=gen, device=dev)
+                          / math.sqrt(fan))
+            x = (torch.randn((MAMBA_B, MAMBA_S, full.d_model),
+                             generator=gen, device=dev) * 0.5).to(dtype)
+            st = ssm.make_mamba_state(full, MAMBA_B, dtype, dev)
+            t1 = time.perf_counter()
+            out, last, traj = ssm.mamba_seq(full, m, x, state=st,
+                                            return_state=True,
+                                            collect_traj=True)
+            torch.cuda.synchronize()
+            t_seq = time.perf_counter() - t1
+            outs, steps = [], []
+            t1 = time.perf_counter()
+            for t in range(MAMBA_S):
+                o, st = ssm.mamba_step(full, m, x[:, t:t + 1], st)
+                outs.append(o)
+                steps.append(st)
+            torch.cuda.synchronize()
+            t_step = time.perf_counter() - t1
+        pairs = [("out", out, torch.cat(outs, 1))]
+        pairs += [(f"trajectory {n}", traj[n],
+                   torch.stack([s[n] for s in steps], 1)) for n in traj]
+        pairs += [(f"final {n}", last[n], st[n]) for n in last]
+        errs = []
+        for what, a, b in pairs:
+            err = float((a.float() - b.float()).abs().max())
+            scale = max(float(b.float().abs().max()), 1e-30)
+            errs.append(f"{what} {err / scale:.3g}")
+            check(err <= MAMBA_RTOL[name] * scale,
+                  f"full-width Mamba {name}: {what} differs by {err:.3g} "
+                  f"(max |ref| {scale:.3g})")
+        print(f"  full-width Mamba layer (d {full.d_model}, d_inner "
+              f"{full.d_inner}, d_state {full.mamba_d_state}, dt_rank "
+              f"{full.dt_rank}), {name}, B {MAMBA_B} x S {MAMBA_S}: "
+              f"sequence form {t_seq * 1e3:.1f} ms, step loop "
+              f"{t_step * 1e3:.1f} ms; max |seq - step| / max |step| "
+              + ", ".join(errs) + f" (bound {MAMBA_RTOL[name]})")
+        del m, out, traj, steps, outs
+    del tp, dp
+    torch.cuda.empty_cache()
+    print(f"  phase 12 (c): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_refusals(dev):
+    """A pipelined trace and a TCP handshake with a stateful target each
+    end in the refusal of serve.events / serve.net, and in nothing
+    else."""
+    import socket
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.core import transport as tp_mod
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig, StatefulModelError)
+    from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
+                                   poisson_trace)
+    from repro_torch.serve.events import PIPELINED_REFUSAL
+    from repro_torch.serve.net import (TCP_TARGET_REFUSAL, CloudServer,
+                                       engine_digest)
+    tc = configs.smoke_variant(configs.get_config(SSM_ARCH))
+    dc = configs.draft_variant(tc, 2)
+    method, ecfg = MethodConfig("csqs"), EngineConfig(L_max=L_MAX)
+    eng = EdgeCloudEngine(dc, seeded_model(dc, 2, dev), tc,
+                          seeded_model(tc, 1, dev), method, ecfg, seed=0,
+                          device=dev)
+    sess = ServeSession(eng, ServeConfig(max_batch=2, cache_len=48,
+                                         pipeline="pipelined"))
+    try:
+        sess.run_trace(poisson_trace(TraceConfig(
+            n_requests=2, prompt_len=8, vocab=tc.vocab, seed=1)))
+    except StatefulModelError as e:
+        check(str(e) == PIPELINED_REFUSAL, f"pipelined refusal: {e}")
+        print(f"  pipelined trace refused: {e}")
+    else:
+        raise CheckFailed("a pipelined trace served a stateful model")
+    server = CloudServer(device=dev).start()
+    try:
+        sock = socket.create_connection(("127.0.0.1", server.port),
+                                        timeout=60)
+        conn = tp_mod.Conn(sock, timeout_s=60)
+        try:
+            conn.send_json(tp_mod.MSG_HELLO, {
+                "proto": tp_mod.PROTO_VERSION, "session": "ssm", "cell": 0,
+                "n_cells": 1, "config": engine_digest(
+                    SSM_ARCH, False, method, ecfg, 0, SLOTS, 48, False)})
+            conn.recv_expect(tp_mod.MSG_HELLO_OK)
+        except tp_mod.TransportError as e:
+            want = f"peer error: bad config: {TCP_TARGET_REFUSAL}"
+            check(str(e) == want, f"tcp refusal: {e}")
+            print(f"  tcp handshake with a full-width {SSM_ARCH} target "
+                  f"refused: {e}")
+        else:
+            raise CheckFailed("the tcp server accepted a stateful target")
+        finally:
+            conn.close()
+    finally:
+        server.stop()
+
+
+def phase_ssm(dev):
+    """Phase 12: the SSM and hybrid family, after the earlier models are
+    freed; every part sets the kernels' launch counts to 0 before it and
+    reads them after.  Returns the SQS launches of the phase."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    failures = []
+    launches = phase_ssm_full_width(dev, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ssm_smoke_rollback(dev, failures)
+    for name, n in phase_hybrid(dev).items():
+        launches[name] += n
+    phase_refusals(dev)
+    check(not failures, "phase 12 rollback: " + "; ".join(failures))
+    print(f"  phase 12: {time.perf_counter() - t0:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated; SQS "
+          f"launches {launches}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1912,11 +2443,17 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     pair_launches = phase_pair(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_launches = phase_ssm(dev)
+    check(all(n > 0 for n in ssm_launches.values()), "phase 12 never "
+          f"launched a kernel: {ssm_launches}")
     for r in rows:
         r["launches"] += (tcp_launches.get(r["name"], 0)
                           + moe_launches.get(r["name"], 0)
-                          + pair_launches.get(r["name"], 0))
-    print(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s")
+                          + pair_launches.get(r["name"], 0)
+                          + ssm_launches.get(r["name"], 0))
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

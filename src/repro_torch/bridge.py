@@ -4,15 +4,16 @@ fresh, and back.
 ``from_jax`` takes the numpy'd parameter tree of
 ``repro.models.init_params`` (``jax.tree.map(np.asarray, params)``, or
 a checkpoint's ``train.checkpoint.load``) and fills a ``Transformer``
-with it: body leaves are period-stacked ``(N, ...)`` and are unstacked
-one layer each.  ``to_jax_tree`` is its inverse: the reference's nested
+with it: body leaves are period-stacked, layer i at index i // P of the
+leaves of period position ``p{i % P}`` (P the config's period, 1 for a
+homogeneous stack), and are unstacked one layer each.  ``to_jax_tree`` is its inverse: the reference's nested
 numpy tree in float32, body leaves stacked again.  Neither imports
 anything of the JAX package.
 
 ``init_params`` draws the distributions of ``repro.models.layers.
 dense_init`` from an explicit ``torch.Generator`` (normal x 1/sqrt(fan_in)
-for matrices, ones for norms, zeros for biases) — used at full width,
-where no JAX runs.  ``seeded_model`` draws them from a generator seeded
+for matrices, ones for norms, zeros for biases, and the reference's
+constant SSM leaves) — used at full width, where no JAX runs.  ``seeded_model`` draws them from a generator seeded
 on the model's device: two processes given the same (config, seed,
 device type) build the same weights, which is how the edge and the cloud
 of a socket session agree without parameters crossing the wire.
@@ -34,32 +35,52 @@ def _mlp_leaves(prefix: str, mlp):
             for n in ("w_gate", "w_up", "w_down")}
 
 
+# each stateful mixer's leaves, under the reference's names
+SSM_LEAVES = {
+    "mamba": ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+              "A_log", "D", "out_proj"),
+    "mlstm": ("up_proj", "w_q", "w_k", "w_v", "w_i", "w_f", "b_i", "b_f",
+              "norm_w", "down_proj"),
+    "slstm": ("w_in", "b_in", "r", "norm_w", "ffn_up", "ffn_down"),
+}
+
+
 def leaves(model: Transformer):
     """(parameter, jax path) pairs in a fixed order; a path ends in a
-    layer index for body leaves, which the reference stacks over layers
-    (a body leaf's reference shape is (n_layers,) + its shape)."""
+    period index for body leaves: layer i's leaf is row i // P of the
+    reference's ``body/p{i % P}/...`` stack."""
     out = [(model.embedding, ("embed", "embedding")),
            (model.final_norm, ("final_norm",))]
     if model.lm_head is not None:
         out.append((model.lm_head, ("embed", "lm_head")))
+    P = model.cfg.period
     for i, blk in enumerate(model.layers):
-        a = blk.attn
-        leaves = {"norm1": blk.norm1, "norm2": blk.norm2,
-                  "attn/w_q": a.w_q, "attn/w_k": a.w_k, "attn/w_v": a.w_v,
-                  "attn/w_o": a.w_o}
-        if blk.moe is None:
-            leaves.update(_mlp_leaves("mlp", blk.mlp))
+        leaves = {"norm1": blk.norm1}
+        if blk.norm2 is not None:
+            leaves["norm2"] = blk.norm2
+        if blk.stateful:
+            m = blk.mixer
+            leaves.update({f"{blk.block_type}/{n}": getattr(m, n)
+                           for n in SSM_LEAVES[blk.block_type]})
         else:
+            a = blk.attn
+            leaves.update({"attn/w_q": a.w_q, "attn/w_k": a.w_k,
+                           "attn/w_v": a.w_v, "attn/w_o": a.w_o})
+        if blk.mlp is not None:
+            leaves.update(_mlp_leaves("mlp", blk.mlp))
+        elif blk.moe is not None:
             m = blk.moe
             leaves.update({"moe/router": m.router, "moe/w_gate": m.w_gate,
                            "moe/w_up": m.w_up, "moe/w_down": m.w_down})
             if m.shared is not None:
                 leaves.update(_mlp_leaves("moe/shared", m.shared))
-        if a.b_q is not None:
+        if not blk.stateful and blk.attn.b_q is not None:
+            a = blk.attn
             leaves.update({"attn/b_q": a.b_q, "attn/b_k": a.b_k,
                            "attn/b_v": a.b_v})
         for path, prm in leaves.items():
-            out.append((prm, ("body", "p0", *path.split("/"), i)))
+            out.append((prm, ("body", f"p{i % P}", *path.split("/"),
+                              i // P)))
     return out
 
 
@@ -86,9 +107,9 @@ def from_jax(params, cfg: ModelConfig, device="cuda", dtype=None,
 
 def to_jax_tree(model: Transformer, values=None):
     """The reference's nested parameter tree as float32 numpy arrays, body
-    leaves stacked (n_layers, ...) under ``body/p0/...``: of the model's
-    parameters, or of ``values``, tensors in ``leaves(model)`` order (its
-    gradients, or an optimizer moment)."""
+    leaves stacked (n_periods, ...) under ``body/p{i % P}/...``: of the
+    model's parameters, or of ``values``, tensors in ``leaves(model)``
+    order (its gradients, or an optimizer moment)."""
     pairs = leaves(model)
     if values is None:
         values = [prm for prm, _ in pairs]
@@ -110,16 +131,53 @@ def to_jax_tree(model: Transformer, values=None):
     return tree
 
 
+def _leaf_name(path) -> str:
+    return path[-2] if isinstance(path[-1], int) else path[-1]
+
+
 def _fan_in(path, shape) -> int:
     """The ``in_axis_size`` the reference's init passes for one leaf: the
     input axis, which for a routed-expert stack (E, d_in, d_out) is axis
-    1, and for the attention output (nq, hd, d) the first two together."""
-    name = path[-2] if isinstance(path[-1], int) else path[-1]
+    1, for the attention output (nq, hd, d) the first two together, for
+    mLSTM's per-head projections (nh, dh, dh) and sLSTM's recurrent
+    weights (4, nh, dh, dh) the head width dh, and for the embedding
+    (V, d) the width d."""
+    name = _leaf_name(path)
+    if name == "embedding":
+        return shape[1]
     if name == "w_o":
         return shape[0] * shape[1]
     if "moe" in path and "shared" not in path and name != "router":
         return shape[1]
+    if ("mlstm" in path and name in ("w_q", "w_k", "w_v")) or name == "r":
+        return shape[-1]
     return shape[0]
+
+
+def _fill_constant(prm, path) -> bool:
+    """Set a leaf the reference initialises to a constant (norms, biases,
+    Mamba's A_log / D / dt_bias, the forget-gate biases); False for a
+    random leaf."""
+    name = _leaf_name(path)
+    if name in ("norm1", "norm2", "final_norm", "norm_w", "D"):
+        prm.fill_(1.0)
+    elif name == "b_f":
+        prm.fill_(3.0)
+    elif name == "dt_bias":
+        prm.fill_(-4.6)                       # softplus ~ 0.01
+    elif name == "A_log":
+        ds = prm.shape[-1]
+        prm.copy_(torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                         device=prm.device)).expand_as(prm))
+    elif name == "b_in":                      # i, f, z, o: f starts at 3
+        prm.zero_()
+        d = prm.shape[0] // 4
+        prm[d:2 * d] = 3.0
+    elif name.startswith("b_") or name == "conv_b":
+        prm.zero_()
+    else:
+        return False
+    return True
 
 
 @torch.no_grad()
@@ -130,12 +188,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     device = resolve_device(device)
     model = Transformer(cfg, dtype=dtype, device=device, trainable=trainable)
     for prm, path in leaves(model):
-        name = path[-2] if isinstance(path[-1], int) else path[-1]
-        if name in ("norm1", "norm2", "final_norm"):
-            prm.fill_(1.0)
-        elif name.startswith("b_"):
-            prm.zero_()
-        else:
+        if not _fill_constant(prm, path):
             std = 1.0 / math.sqrt(_fan_in(path, prm.shape))
             w = torch.randn(prm.shape, generator=generator, device=device,
                             dtype=torch.float32)

@@ -7,8 +7,10 @@ reference."""
 from repro_torch.configs.base import (ModelConfig, get_config, list_configs,
                                       smoke_variant, draft_variant)
 from repro_torch.configs import (deepseek_7b, granite_3_8b,  # noqa: F401
-                                 paper_pair, qwen2_5_3b, qwen2_moe_a2_7b,
-                                 stablelm_12b)
+                                 jamba_1_5_large_398b, paper_pair,
+                                 qwen2_5_3b, qwen2_moe_a2_7b, stablelm_12b,
+                                 xlstm_1_3b)
 
 ASSIGNED = ["deepseek-7b", "qwen2-moe-a2.7b", "granite-3-8b",
-            "stablelm-12b", "qwen2.5-3b"]
+            "stablelm-12b", "xlstm-1.3b", "jamba-1.5-large-398b",
+            "qwen2.5-3b"]

@@ -27,6 +27,18 @@ on how calls interleave in time.  State tensors are replaced, never
 written in place (registers alias them); only the KV caches are written
 in place.
 
+Models with sequential state (Mamba, mLSTM, sLSTM layers) cannot mask a
+rejected draft away the way a KV entry is masked: the draft keeps a
+snapshot of every stateful layer's state after each of its L+1 steps,
+the verify collects the state after each of its L+1 positions, and both
+caches roll back to the snapshot after the last kept token
+(``rollback_cache``).  As in the reference, a row outside the commit
+mask replays its registers through its state too and is rolled back to
+the snapshot after one replayed token; such a row is an empty slot,
+which the next admission overwrites.  Stateful models serve lockstep
+only: the optimistic continuation and per-slot verdicts of pipelined
+serving need positional caches.
+
 Randomness comes only from per-row threefry keys (``repro_torch.prng``),
 which give jax's bits: the token streams equal the reference's.
 """
@@ -50,8 +62,7 @@ from repro_torch.core import wire as wire_mod
 from repro_torch.core.pages import PageAllocator
 from repro_torch.models import model as model_mod
 from repro_torch.models.attention import PagedSpec, sanitize_page_table
-
-SEQ_BLOCKS = ("mamba", "mlstm", "slstm")
+from repro_torch.models.transformer import SEQ_BLOCKS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,10 +115,28 @@ def _set(t, slot: int, value):
     return t
 
 
-def _check_dense(cfg: ModelConfig):
-    if any(b in SEQ_BLOCKS for b in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: sequential-state (SSM) models are not ported yet")
+class StatefulModelError(ValueError):
+    """A path that needs positional (KV) caches was asked to run a model
+    with sequential state."""
+
+
+def is_stateful(cfg: ModelConfig) -> bool:
+    return any(b in SEQ_BLOCKS for b in cfg.block_pattern)
+
+
+def rollback_cache(cache, traj, n_keep):
+    """Restore every stateful layer of ``cache`` to its state after
+    position ``n_keep - 1`` of ``traj`` (n_keep >= 1 tokens kept), per
+    row, as new tensors.  traj: {layer index: {leaf: (B, S, ...)}}, or
+    None (attention-only models: KV caches roll back by position).
+    n_keep: (B,) int tensor."""
+    if traj is None:
+        return cache
+    idx = (n_keep - 1).clamp_min(0)
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    for i, leaves in traj.items():
+        cache[i] = {name: t[rows, idx] for name, t in leaves.items()}
+    return cache
 
 
 # ======================================================================
@@ -184,8 +213,8 @@ class EdgeDraftEngine:
     def __init__(self, dc: ModelConfig, model, method: MethodConfig,
                  engine: EngineConfig, fmt: wire_mod.WireFormat,
                  seed: int = 0, device="cuda"):
-        _check_dense(dc)
         self.dc, self.model = dc, model
+        self.stateful = is_stateful(dc)
         self.m, self.e, self.fmt = method, engine, fmt
         self.seed = seed
         self.V = dc.vocab
@@ -239,13 +268,22 @@ class EdgeDraftEngine:
     def _draft_round(self, x_last, pos, beta, keys):
         """L_max+1 decode steps.  Returns per-step trajectories stacked to
         (L+1, B, ...): drafts, q̂, bits, dropped mass, K and the β after
-        each in-round update.  keys: (B, 2) per-row PRNG keys."""
+        each in-round update; for a stateful draft also "snap", each
+        stateful layer's state after every step ({layer: {leaf:
+        (B, L+1, ...)}}, the states the steps made, stacked once).
+        keys: (B, 2) per-row PRNG keys."""
         steps = []
+        snap = {i: {name: [] for name in c}
+                for i, c in enumerate(self.dcache)
+                if self.model.layers[i].stateful}
         tok = x_last
         for _ in range(self.e.L_max + 1):
             keys, k1 = _split_rows(keys)
             logits, self.dcache = model_mod.decode_step(self.model, tok,
                                                         self.dcache, pos)
+            for i, leaves in snap.items():
+                for name, ts in leaves.items():
+                    ts.append(self.dcache[i][name])
             r, bits, gap_bits = self._sparsify(logits, beta)
             nxt = prng.categorical(
                 k1, torch.log(torch.clamp(r.q_hat, min=1e-30)))
@@ -259,8 +297,14 @@ class EdgeDraftEngine:
                 step["q"] = sqs_mod.softmax_temp(logits, self.e.temperature)
             steps.append(step)
             tok, pos = nxt, pos + 1
-        return {name: torch.stack([s[name] for s in steps])
-                for name in steps[0]}
+        ys = {name: torch.stack([s[name] for s in steps])
+              for name in steps[0]}
+        if self.stateful:
+            # popping each list as it is stacked frees the step tensors
+            ys["snap"] = {i: {name: torch.stack(leaves.pop(name), 1)
+                              for name in list(leaves)}
+                          for i, leaves in snap.items()}
+        return ys
 
     # -- state ---------------------------------------------------------
     def _alloc_state(self, B: int):
@@ -419,6 +463,10 @@ class EdgeDraftEngine:
         by ``commit_speculative`` when the verdict confirms the
         premise.  (Cache writes land beyond the committed position and
         are masked / overwritten if the premise fails.)"""
+        if self.stateful:
+            raise StatefulModelError(
+                "speculative continuation requires a positional (KV) draft "
+                "cache: sequential-state drafts must run lockstep")
         onehot = np.zeros((self.B,), bool)
         onehot[slot] = True
         dev = self.device
@@ -456,7 +504,11 @@ class EdgeDraftEngine:
                            verdict: wire_mod.VerdictPayload,
                            rec: PendingRound) -> List[int]:
         """Per-slot verdict (event-driven serving).  Positional caches
-        need no rollback."""
+        need no rollback; sequential-state drafts are lockstep-only."""
+        if self.stateful:
+            raise StatefulModelError(
+                "per-slot verdicts require a positional (KV) draft cache: "
+                "sequential-state drafts must run lockstep")
         T = int(verdict.n_accept)
         self.pos = _set(self.pos, slot, self.pos[slot] + T + 1)
         self.x_last = _set(self.x_last, slot, int(verdict.new_token))
@@ -468,9 +520,11 @@ class EdgeDraftEngine:
     def apply_verdicts_batch(self, mask: np.ndarray,
                              verdicts: Dict[int, wire_mod.VerdictPayload],
                              batch: DraftBatch) -> List[List[int]]:
-        """Whole-batch verdict application: β resume from the wire,
-        position/x_last advance, token emission.  (Positional KV caches
-        need no rollback.)"""
+        """Whole-batch verdict application: rollback of the stateful
+        layers to the snapshot after the last kept token (rows outside
+        ``mask`` to the one after their replayed token), β resume from
+        the wire, position/x_last advance, token emission.  (Positional
+        KV caches need no rollback.)"""
         B = self.B
         T_np = np.zeros((B,), np.int64)
         nt_np = np.zeros((B,), np.int64)
@@ -481,11 +535,13 @@ class EdgeDraftEngine:
             beta_np[slot] = np.float32(v.beta_next)
         dev = self.device
         mj = torch.as_tensor(mask, device=dev)
+        T = torch.from_numpy(T_np).to(dev)
+        self.dcache = rollback_cache(self.dcache, batch.ys.get("snap"),
+                                     torch.where(mj, T, 0) + 1)
         if self.m.name == "csqs":
             self.beta = torch.where(mj, torch.from_numpy(beta_np).to(dev),
                                     self.beta)
-        self.pos = self.pos + torch.where(
-            mj, torch.from_numpy(T_np).to(dev) + 1, 0)
+        self.pos = self.pos + torch.where(mj, T + 1, 0)
         self.x_last = torch.where(mj, torch.from_numpy(nt_np).to(dev),
                                   self.x_last)
         emitted = [[] for _ in range(B)]
@@ -504,19 +560,22 @@ class CloudVerifyEngine:
     def __init__(self, tc: ModelConfig, model, method: MethodConfig,
                  engine: EngineConfig, fmt: wire_mod.WireFormat,
                  seed: int = 0, device="cuda"):
-        _check_dense(tc)
         self.tc, self.model = tc, model
+        self.stateful = is_stateful(tc)
         self.m, self.e, self.fmt = method, engine, fmt
         self.seed = seed
         self.V = tc.vocab
         self.device = resolve_device(device)
 
     def _verify_round(self, tokens_in, pos, q_hat, live, keys):
-        """tokens_in: (B, L+1) = [x_last, d_1..d_L]."""
-        logits, self.tcache = model_mod.extend_step(self.model, tokens_in,
-                                                    self.tcache, pos)
+        """tokens_in: (B, L+1) = [x_last, d_1..d_L].  Returns (verify
+        result, p, the state trajectory of a stateful target or None)."""
+        logits, self.tcache, traj = model_mod.extend_step(
+            self.model, tokens_in, self.tcache, pos,
+            collect_traj=self.stateful)
         p = sqs_mod.softmax_temp(logits, self.e.temperature)  # (B, L+1, V)
-        return verify_mod.verify(keys, tokens_in[:, 1:], q_hat, p, live), p
+        return (verify_mod.verify(keys, tokens_in[:, 1:], q_hat, p, live), p,
+                traj if self.stateful else None)
 
     def _alloc_state(self, B: int):
         L, dev = self.e.L_max, self.device
@@ -578,8 +637,10 @@ class CloudVerifyEngine:
                payloads: Dict[int, wire_mod.DraftPayload],
                collect_p: bool = False) -> VerifyBatch:
         """Verify the rows in ``mask`` against their unpacked payloads;
-        other rows replay their registers.  Packs one verdict per payload,
-        including the Alg.-1 β backtrack from the wire trajectory."""
+        other rows replay their registers.  Rolls a stateful target back
+        to the state after the last kept token.  Packs one verdict per
+        payload, including the Alg.-1 β backtrack from the wire
+        trajectory."""
         B, L, dev = self.B, self.e.L_max, self.device
         tok_np = np.zeros((B, L), np.int64)
         qhat_np = np.zeros((B, L, self.V), np.float32)
@@ -602,10 +663,13 @@ class CloudVerifyEngine:
         tokens_in = torch.cat([x_in[:, None], tokens], 1)
         _sync(dev)
         t0 = time.perf_counter()
-        res, p_dists = self._verify_round(tokens_in, pos_in, qhat, live, kv)
+        res, p_dists, traj = self._verify_round(tokens_in, pos_in, qhat,
+                                                live, kv)
         _sync(dev)
         t_llm = time.perf_counter() - t0
         T = res.n_accept.to(torch.int64)
+        self.tcache = rollback_cache(self.tcache, traj,
+                                     torch.where(mj, T, 0) + 1)
         self.pos = torch.where(mj, pos_in + T + 1, self.pos)
         self.x_last = torch.where(mj, res.new_token.to(torch.int64),
                                   self.x_last)
@@ -661,6 +725,9 @@ class EdgeEngineBase:
             codec=engine.wire_codec)
         self.edge = EdgeDraftEngine(draft_cfg, draft_model, method, engine,
                                     self.fmt, seed, self.device)
+        # does the verify-side model carry recurrent state? (subclasses
+        # set it)
+        self.peer_stateful = False
         self.paged = False
         self.alloc: Optional[PageAllocator] = None
 
@@ -819,8 +886,11 @@ class EdgeEngineBase:
     def draft_speculative_slot(self, slot: int,
                                rec: PendingRound) -> Optional[SpecDraft]:
         """Optimistic continuation for ``slot`` while its round is in
-        flight.  Returns None when the window would exceed the slot's
-        capacity or the page pool."""
+        flight.  Returns None when speculation is unsafe (a stateful draft
+        or target) or the window would exceed the slot's capacity or the
+        page pool."""
+        if self.edge.stateful or self.peer_stateful:
+            return None
         n = rec.n_live
         pos_next = int(self.pos[slot]) + n + 1
         if pos_next + self.e.L_max + 1 > self.cache_len:
@@ -890,6 +960,7 @@ class EdgeCloudEngine(EdgeEngineBase):
         self.tc = target_cfg
         self.cloud = CloudVerifyEngine(target_cfg, target_model, method,
                                        engine, self.fmt, seed, self.device)
+        self.peer_stateful = self.cloud.stateful
 
     @property
     def tcache(self):

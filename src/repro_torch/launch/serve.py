@@ -30,6 +30,15 @@ Theorem-1 decomposition on lockstep runs) and check them
         --smoke --device cpu --trace --transport tcp \
         --trace-out /tmp/t.json --metrics-out /tmp/m.json   # CPU smoke
 
+The SSM and hybrid configs (``xlstm-1.3b``, ``jamba-1.5-large-398b``)
+serve fixed-batch and lockstep traces; ``--pipeline pipelined`` and
+``--transport tcp`` are refused at argument time (exit 2) with the
+message of ``serve.events`` / ``serve.net`` (sequential state rolls back
+only in lockstep rounds).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
+        --smoke --device cpu --rounds 2                    # CPU smoke
+
 Weights come from ``--target-ckpt`` / ``--draft-ckpt`` (flat-npz
 checkpoints of ``repro_torch.launch.train`` or of the reference's
 trainer); an empty flag draws random ones with ``bridge.seeded_model``
@@ -47,11 +56,13 @@ from repro_torch import configs, resolve_device
 from repro_torch.bridge import from_jax, seeded_model
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
-                                     MethodConfig, summarize)
+                                     MethodConfig, is_stateful, summarize)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.obs import DecompTracker, Obs, span_names_by_clock
 from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
                                poisson_trace)
+from repro_torch.serve.events import PIPELINED_REFUSAL
+from repro_torch.serve.net import TCP_TARGET_REFUSAL
 from repro_torch.train import checkpoint
 
 
@@ -346,11 +357,16 @@ def main(argv=None):
                  "serve a --target-ckpt with --transport sim")
     if (args.trace_out or args.metrics_out) and not args.trace:
         ap.error("--trace-out/--metrics-out require --trace")
+    tc = configs.get_config(args.arch)
+    # sequential-state models roll back only in lockstep simulated rounds
+    if is_stateful(tc) and args.trace and args.pipeline == "pipelined":
+        ap.error(PIPELINED_REFUSAL)
+    if is_stateful(tc) and args.transport == "tcp":
+        ap.error(TCP_TARGET_REFUSAL)
     obs = build_obs(args) if (args.trace_out or args.metrics_out) \
         else None
     device = resolve_device(args.device)
 
-    tc = configs.get_config(args.arch)
     if args.smoke:
         tc = configs.smoke_variant(tc)
     dc = configs.draft_variant(tc, args.draft_scale)

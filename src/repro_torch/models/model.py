@@ -7,21 +7,30 @@
     train_loss(model, batch, remat=True)           -> (loss, metrics)
     forward_logits(model, tokens)                  -> logits (B, S, V)
     prefill(model, tokens, cache_len)              -> (last_logits, cache)
-    extend_step(model, tokens, cache, pos)         -> (logits (B,L,V), cache)
+    extend_step(model, tokens, cache, pos,
+                collect_traj=False)                -> (logits (B,L,V), cache,
+                                                     traj)
     decode_step(model, token, cache, pos)          -> (logits (B,V), cache)
     init_cache(model, batch, seq, paged=None)      -> empty serving cache
     set_page_tables(cache, pt)                     -> cache, tables refreshed
     write_prefill_to_slot(big, small, slot, ...)   -> prompt into one slot
 
-A cache is a list with one dict per layer: dense {"k", "v"} of
-(B, cache_len, nkv, hd) tensors, plus f32 "k_scale"/"v_scale"
-(B, cache_len, nkv) when ``cfg.kv_cache_dtype == "int8"``; a paged layer
-holds pools (n_pages + 1, page_size, ...) of the same leaves and its
-slots' "page_table" (B, max_pages).  ``extend_step`` writes into the cache
-in place and dispatches on "page_table"; with L > 1 it is the
-speculative-decoding verification pass.  The serve entry points run
-without gradients; ``train_loss`` and ``forward_logits`` run with
-whatever grad mode the caller has.
+A cache is a list with one dict per layer, of the layer's kind.  An
+attention layer holds dense {"k", "v"} of (B, cache_len, nkv, hd)
+tensors, plus f32 "k_scale"/"v_scale" (B, cache_len, nkv) when
+``cfg.kv_cache_dtype == "int8"``; a paged attention layer holds pools
+(n_pages + 1, page_size, ...) of the same leaves and its slots'
+"page_table" (B, max_pages).  A stateful layer (Mamba, mLSTM, sLSTM)
+holds its recurrent state, (B, ...) leaves of ``ssm.make_state``.
+``extend_step`` writes KV into the cache in place, dispatching on
+"page_table", and replaces each stateful layer's state with the new
+one (a new tensor: state tensors are never written in place); with
+L > 1 it is the speculative-decoding verification pass, and with
+``collect_traj`` it also returns, keyed by layer index, the state after
+every one of the L positions, (B, L, ...) leaves (empty without it), from which
+``core.engine.rollback_cache`` restores the state after the last kept
+token.  The serve entry points run without gradients; ``train_loss`` and
+``forward_logits`` run with whatever grad mode the caller has.
 
 A model built with ``trainable=True`` holds float32 masters with
 gradients on (the reference's parameters), computing in ``dtype``; a
@@ -38,10 +47,11 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm
 from repro_torch.models.layers import (compute_dtype, embed_apply,
                                        lm_head_apply, param, rmsnorm)
-from repro_torch.models.transformer import Block, apply_train, \
-    check_supported
+from repro_torch.models.transformer import apply_train, check_supported, \
+    make_layers
 
 
 class Transformer(nn.Module):
@@ -57,8 +67,7 @@ class Transformer(nn.Module):
         self.embedding = param(cfg.vocab, d, dtype=store, device=device)
         self.lm_head = None if cfg.tie_embeddings else \
             param(d, cfg.vocab, dtype=store, device=device)
-        self.layers = nn.ModuleList(Block(cfg, store, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = make_layers(cfg, store, device)
         self.final_norm = param(d, dtype=torch.float32, device=device,
                                 fill=1.0)
         self.requires_grad_(trainable)
@@ -119,49 +128,67 @@ def forward_logits(model: Transformer, tokens):
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens, cache_len: Optional[int] = None):
-    """Run the prompt (B, S) and build the decode cache, padded with zeros
-    out to ``cache_len`` positions.  Returns (last_logits (B, V), cache)."""
+    """Run the prompt (B, S) and build the decode cache: attention KV
+    padded with zeros out to ``cache_len`` positions, stateful layers'
+    state after the prompt.  Returns (last_logits (B, V), cache)."""
     B, S = tokens.shape
     cache_len = cache_len or S
     positions = _positions(B, S, 0, tokens.device)
     x = embed_apply(model.embedding, tokens, model.dtype)
     cache = []
     for blk in model.layers:
-        x, kv = blk.prefill(x, positions)
-        grown = {}
-        for name, t in kv.items():
-            full = torch.zeros((B, cache_len) + t.shape[2:], dtype=t.dtype,
-                               device=t.device)
-            full[:, :S] = t
-            grown[name] = full
-        cache.append(grown)
+        x, c = blk.prefill(x, positions)
+        if not blk.stateful:
+            grown = {}
+            for name, t in c.items():
+                full = torch.zeros((B, cache_len) + t.shape[2:],
+                                   dtype=t.dtype, device=t.device)
+                full[:, :S] = t
+                grown[name] = full
+            c = grown
+        cache.append(c)
     return model.head(x[:, -1:])[:, 0], cache
 
 
 @torch.no_grad()
-def extend_step(model: Transformer, tokens, cache, pos):
+def extend_step(model: Transformer, tokens, cache, pos,
+                collect_traj: bool = False):
     """tokens: (B, L) new tokens; pos: (B,) absolute index of tokens[:, 0].
-    Returns (logits (B, L, V) float32, cache updated in place)."""
+    Returns (logits (B, L, V) float32, cache, traj), the cache's KV
+    written in place and its stateful layers' states replaced; traj is
+    {layer index: {leaf: (B, L, ...)}}, the state after every position,
+    with ``collect_traj`` and {} without."""
     B, L = tokens.shape
     positions = _positions(B, L, pos, tokens.device)
     x = embed_apply(model.embedding, tokens, model.dtype)
-    for blk, c in zip(model.layers, cache):
-        x = blk.extend(x, positions, c, pos)
-    return model.head(x), cache
+    traj = {}
+    for i, (blk, c) in enumerate(zip(model.layers, cache)):
+        x, state, tj = blk.extend(x, positions, c, pos, collect_traj)
+        if blk.stateful:
+            cache[i] = state
+            if collect_traj:
+                traj[i] = tj
+    return model.head(x), cache, traj
 
 
 def init_cache(model: Transformer, batch: int, seq: int,
                paged: Optional[attn_mod.PagedSpec] = None):
-    """Empty serving cache.  ``paged``: every attention layer gets a
-    shared page pool + per-slot page table instead of dense (B, seq, ...)
-    KV."""
+    """Empty serving cache: dense KV for attention layers, zero states for
+    stateful ones.  ``paged``: every attention layer gets a shared page
+    pool + per-slot page table instead of dense (B, seq, ...) KV."""
     cfg, dev = model.cfg, model.device
-    if paged is not None:
-        return [attn_mod.make_paged_kv_cache(cfg, batch, paged, model.dtype,
-                                             dev)
-                for _ in model.layers]
-    return [attn_mod.make_kv_cache(cfg, batch, seq, model.dtype, dev)
-            for _ in model.layers]
+    cache = []
+    for blk in model.layers:
+        if blk.stateful:
+            cache.append(ssm.make_state(cfg, blk.block_type, batch,
+                                        model.dtype, dev))
+        elif paged is not None and attn_mod.paged_eligible(cfg):
+            cache.append(attn_mod.make_paged_kv_cache(cfg, batch, paged,
+                                                      model.dtype, dev))
+        else:
+            cache.append(attn_mod.make_kv_cache(cfg, batch, seq,
+                                                model.dtype, dev))
+    return cache
 
 
 def set_page_tables(cache, pt):
@@ -178,19 +205,26 @@ def set_page_tables(cache, pt):
 def write_prefill_to_slot(big, small, slot: int, pt_row=None,
                           length: int = 0):
     """Scatter a batch-1 prefill cache ``small`` into the multi-slot
-    cache ``big`` IN PLACE: dense layers into batch row ``slot`` (the
+    cache ``big``: dense KV layers into batch row ``slot`` IN PLACE (the
     whole row, as the reference's dynamic_update_slice), paged layers
-    the prompt's first ``length`` positions through ``pt_row``."""
+    the prompt's first ``length`` positions through ``pt_row``, and a
+    stateful layer's state into row ``slot`` of new tensors (state
+    tensors are never written in place)."""
     for b, s in zip(big, small):
         if "page_table" in b:
             attn_mod.prefill_into_pages(b, s, pt_row, length)
-        else:
+        elif "k" in b:
             for name, t in s.items():
                 b[name][slot] = t[0].to(b[name].dtype)
+        else:
+            for name, t in s.items():
+                new = b[name].clone()
+                new[slot] = t[0].to(new.dtype)
+                b[name] = new
     return big
 
 
 def decode_step(model: Transformer, token, cache, pos):
     """token: (B,).  Returns (logits (B, V), cache)."""
-    logits, cache = extend_step(model, token[:, None], cache, pos)
+    logits, cache, _ = extend_step(model, token[:, None], cache, pos)
     return logits[:, 0], cache

@@ -1,10 +1,19 @@
-"""The attention + SwiGLU (or MoE) block and the layer stack (mirrors
-``repro.models.transformer`` for GQA attention configs with a dense or a
-mixture-of-experts channel mixer).  The reference scans
+"""Block composition and the layer stack (mirrors
+``repro.models.transformer``).  Layer i is the block
+``(cfg.block_pattern[i % P], cfg.ffn_pattern[i % P])`` of the period P:
+a sequence mixer (GQA attention, Mamba, mLSTM or sLSTM) and a channel
+mixer (SwiGLU MLP, mixture of experts, or none: xLSTM's blocks carry
+their own projections and have no second norm).  The reference scans
 period-stacked parameters with ``jax.lax.scan``; the port keeps one
 module per layer in an ``nn.ModuleList`` and loops in Python; in training
-(``apply_train``) each layer is checkpointed, as the reference checkpoints
-each scanned period."""
+(``apply_train``) each layer is checkpointed, as the reference
+checkpoints each scanned period.
+
+An attention layer's cache is its KV cache, written in place by
+``extend``; a stateful layer's cache is its recurrent state, which
+``prefill`` and ``extend`` return as new tensors (with ``collect_traj``,
+also the state after every position, for speculative-decoding
+rollback)."""
 from __future__ import annotations
 
 import torch
@@ -13,52 +22,91 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, param, rmsnorm
 from repro_torch.models.moe import MoE
 
+SEQ_BLOCKS = tuple(ssm.MIXERS)
+
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, block_type: str, ffn_type: str,
+                 dtype, device):
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
+        self.block_type, self.ffn_type = block_type, ffn_type
+        self.stateful = block_type in SEQ_BLOCKS
         # norm weights stay float32: the reference reads them as float32
         self.norm1 = param(d, dtype=torch.float32, device=device, fill=1.0)
-        self.attn = attn.Attention(cfg, dtype, device)
-        self.norm2 = param(d, dtype=torch.float32, device=device, fill=1.0)
-        if cfg.ffn_pattern == ("moe",):
-            self.mlp, self.moe = None, MoE(cfg, dtype, device)
-        else:
-            self.mlp, self.moe = MLP(d, cfg.d_ff, dtype, device), None
+        mixer = attn.Attention if block_type == "attn" else \
+            ssm.MIXERS[block_type]
+        # under the reference's name: attn | mamba | mlstm | slstm
+        self.add_module(block_type, mixer(cfg, dtype, device))
+        self.norm2 = None if ffn_type == "none" else \
+            param(d, dtype=torch.float32, device=device, fill=1.0)
+        self.mlp = MLP(d, cfg.d_ff, dtype, device) if ffn_type == "mlp" \
+            else None
+        self.moe = MoE(cfg, dtype, device) if ffn_type == "moe" else None
+
+    @property
+    def mixer(self):
+        return getattr(self, self.block_type)
 
     def train_forward(self, x, positions, dropless: bool = False):
         """The train-mode block over the full sequence: returns (x, aux
         loss).  The MoE mixer drops tokens past capacity unless
         ``dropless`` (the teacher-forced oracle never drops)."""
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
-        x = x + attn.attn_full(self.cfg, self.attn, h, positions)
-        h = rmsnorm(x, self.norm2, self.cfg.rms_eps)
+        if self.stateful:
+            a = ssm.train_seq(self.cfg, self.block_type, self.mixer, h)
+        else:
+            a = attn.attn_full(self.cfg, self.attn, h, positions)
+        x = x + a
         if self.moe is None:
-            return x + self.mlp(h), torch.zeros((), device=x.device)
+            return self._ffn(x), torch.zeros((), device=x.device)
+        h = rmsnorm(x, self.norm2, self.cfg.rms_eps)
         B, S, D = h.shape
         y, aux = self.moe.tokens(h.reshape(B * S, D), dropless)
         return x + y.reshape(B, S, D), aux
 
     def prefill(self, x, positions):
-        """Returns (x, {"k", "v"}) for the prompt."""
+        """Returns (x, cache leaves): the prompt's {"k", "v"}, or the
+        recurrent state after the prompt."""
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
-        a, kv = attn.attn_prefill(self.cfg, self.attn, h, positions)
-        return self._ffn(x + a), kv
+        if self.stateful:
+            a, c, _ = ssm.seq(self.cfg, self.block_type, self.mixer, h)
+        else:
+            a, c = attn.attn_prefill(self.cfg, self.attn, h, positions)
+        return self._ffn(x + a), c
 
-    def extend(self, x, positions, cache, pos):
+    def extend(self, x, positions, cache, pos, collect_traj: bool = False):
+        """Returns (x, new state, trajectory): the state and trajectory of
+        a stateful layer (the trajectory only with ``collect_traj``), None
+        for attention, whose KV cache is written in place and rolls back
+        by position."""
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
-        a, _ = attn.attn_extend(self.cfg, self.attn, h, positions, cache,
-                                pos)
-        return self._ffn(x + a)
+        state = traj = None
+        if self.stateful:
+            a, state, traj = ssm.seq(self.cfg, self.block_type, self.mixer,
+                                     h, cache, collect_traj)
+        else:
+            a, _ = attn.attn_extend(self.cfg, self.attn, h, positions, cache,
+                                    pos)
+        return self._ffn(x + a), state, traj
 
     def _ffn(self, x):
+        if self.norm2 is None:
+            return x
         ffn = self.mlp if self.moe is None else self.moe
         return x + ffn(rmsnorm(x, self.norm2, self.cfg.rms_eps))
+
+
+def make_layers(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
+    P = cfg.period
+    return nn.ModuleList(
+        Block(cfg, cfg.block_pattern[i % P], cfg.ffn_pattern[i % P], dtype,
+              device) for i in range(cfg.n_layers))
 
 
 def apply_train(layers, x, positions, remat: bool = True,
@@ -78,15 +126,17 @@ def apply_train(layers, x, positions, remat: bool = True,
 
 
 def check_supported(cfg: ModelConfig):
-    """The port runs GQA attention stacks with an MLP or a MoE channel
-    mixer so far, with a KV cache in the compute dtype or in int8."""
-    ok = (cfg.block_pattern == ("attn",)
-          and cfg.ffn_pattern in (("mlp",), ("moe",))
+    """The port runs GQA attention, Mamba, mLSTM and sLSTM blocks with an
+    MLP, a MoE or no channel mixer, with a KV cache in the compute dtype
+    or in int8; MLA, sliding windows, dense prefix layers, encoders and
+    modality frontends come with later slices."""
+    ok = (set(cfg.block_pattern) <= {"attn", *SEQ_BLOCKS}
+          and set(cfg.ffn_pattern) <= {"mlp", "moe", "none"}
           and cfg.n_prefix_layers == 0 and cfg.n_encoder_layers == 0
           and not cfg.is_mla and cfg.attention == "full"
           and cfg.kv_cache_dtype in ("compute", "int8")
           and cfg.frontend == "none")
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: only GQA attention + MLP/MoE configs are ported "
-            "so far")
+            f"{cfg.name}: only GQA attention / Mamba / mLSTM / sLSTM blocks "
+            "with an MLP, MoE or no channel mixer are ported so far")

@@ -59,9 +59,14 @@ import heapq
 import itertools
 from typing import Dict, List, Optional
 
-from repro_torch.core.engine import PendingRound, SpecDraft
+from repro_torch.core.engine import PendingRound, SpecDraft, \
+    StatefulModelError
 from repro_torch.obs import CLOCK_MODELED, NULL_OBS, Obs
 from repro_torch.serve.request import Request
+
+PIPELINED_REFUSAL = ("pipelined serving requires attention-only "
+                     "draft/target models (sequential-state rollback is "
+                     "lockstep-only)")
 
 ARRIVAL = "arrival"
 EDGE_DONE = "edge_done"
@@ -262,6 +267,8 @@ class EventDrivenLoop:
         self.sched = sess.sched
         self.topo = sess.topo
         self.cfg = sess.cfg
+        if self.eng.edge.stateful or self.eng.peer_stateful:
+            raise StatefulModelError(PIPELINED_REFUSAL)
         self.now = 0.0
         self._queue = EventQueue()
         self.cloud_busy_until = 0.0

@@ -64,7 +64,8 @@ from repro_torch.core import channel as channel_mod
 from repro_torch.core import transport as tp_mod
 from repro_torch.core import wire as wire_mod
 from repro_torch.core.engine import (CloudVerifyEngine, EdgeEngineBase,
-                                     EngineConfig, MethodConfig)
+                                     EngineConfig, MethodConfig,
+                                     is_stateful)
 from repro_torch.core.transport import (MSG_ADMIT, MSG_BYE, MSG_ERROR,
                                         MSG_HELLO, MSG_HELLO_OK, MSG_STATS,
                                         MSG_VERDICTS, MSG_VERIFY,
@@ -76,6 +77,8 @@ from repro_torch.serve.events import RoundStateMachine
 from repro_torch.serve.request import Request
 
 IO_TIMEOUT_S = 120.0
+TCP_TARGET_REFUSAL = "tcp transport serves attention-only target models"
+TCP_DRAFT_REFUSAL = "tcp transport serves attention-only draft models"
 
 log = logging.getLogger("repro_torch.serve.net")
 
@@ -127,15 +130,10 @@ class _Session:
             V=tc.vocab, ell=method.ell, L_max=engine.L_max,
             mode="raw" if method.name == "uncompressed" else "lattice",
             codec=engine.wire_codec)
-        try:
-            tm = build_target(tc, seed + 1, device)
-            # the port's engines serve attention-only models and raise
-            # for the others
-            self.cloud = CloudVerifyEngine(tc, tm, method, engine, fmt,
-                                           seed, device)
-        except NotImplementedError as e:
-            raise TransportError(
-                f"tcp transport cannot serve this target: {e}") from e
+        if is_stateful(tc):
+            raise TransportError(TCP_TARGET_REFUSAL)
+        self.cloud = CloudVerifyEngine(tc, build_target(tc, seed + 1, device),
+                                       method, engine, fmt, seed, device)
         self.cloud.init_slots(config["n_slots"], config["cache_len"], None)
         self.fmt = fmt
         self.n_slots = config["n_slots"]
@@ -420,6 +418,8 @@ class EdgeClient:
         self.arch, self.smoke, self.seed = arch, smoke, seed
         self.host, self.port = host, port
         self.io_timeout_s = io_timeout_s
+        if is_stateful(draft_cfg):
+            raise TransportError(TCP_DRAFT_REFUSAL)
         self.engine = EdgeTransportEngine(
             draft_cfg, draft_model, method, engine,
             channel_mod.ChannelConfig(), seed, device)

@@ -14,7 +14,12 @@ port serves in both, in float32 on the CPU:
   beta within the pin of tests/test_torch_engine.py (ROADMAP Queue 3
   item 3; at most 3 ulps observed here, 3 to 6 of 24 drafts accepted);
 - the launchers: ``launch.train`` saves checkpoints the reference loads,
-  and ``launch.serve`` serves them (``--target-ckpt``/``--draft-ckpt``).
+  and ``launch.serve`` serves them (``--target-ckpt``/``--draft-ckpt``);
+- the SSM and hybrid family: smoke ``xlstm-1.3b`` and
+  ``jamba-1.5-large-398b`` checkpoints cross both ways as above, their
+  full period-8 patterns (two periods at small widths) map layer i to
+  row i // 8 of ``body/p{i % 8}``, and ``bridge.init_params`` gives the
+  reference's constant leaves.
 """
 import os
 
@@ -91,7 +96,11 @@ def _assert_same_tree(a, b):
                                       err_msg=jax.tree_util.keystr(path))
 
 
-@pytest.mark.parametrize("name", ["gptneo-1.3b", "qwen2-moe-a2.7b"])
+CKPT_ARCHS = ["gptneo-1.3b", "qwen2-moe-a2.7b", "xlstm-1.3b",
+              "jamba-1.5-large-398b"]
+
+
+@pytest.mark.parametrize("name", CKPT_ARCHS)
 def test_port_checkpoint_loads_in_reference(name, tmp_path):
     jc, tc = _cfgs(name)
     model = bridge.seeded_model(tc, 4, "cpu", trainable=True)
@@ -108,7 +117,7 @@ def test_port_checkpoint_loads_in_reference(name, tmp_path):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
-@pytest.mark.parametrize("name", ["gptneo-1.3b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("name", CKPT_ARCHS)
 def test_reference_checkpoint_loads_in_port(name, tmp_path):
     jc, tc = _cfgs(name)
     params = init_params(jc, jax.random.PRNGKey(5))
@@ -124,6 +133,79 @@ def test_reference_checkpoint_loads_in_port(name, tmp_path):
     with torch.no_grad():
         got = tmodel.forward_logits(model, torch.from_numpy(toks).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+# the full configs' period-8 patterns (the smoke variants keep one layer
+# of each distinct kind) at small widths, two periods deep
+PERIOD8 = {"xlstm-1.3b": dict(n_layers=16, d_model=64, n_heads=2,
+                              n_kv_heads=2, head_dim=32, vocab=256,
+                              dtype="float32"),
+           "jamba-1.5-large-398b": dict(
+               n_layers=16, d_model=64, n_heads=4, n_kv_heads=2,
+               head_dim=16, d_ff=128, vocab=256, n_experts=4, moe_top_k=2,
+               d_expert=32, mamba_dt_rank=8, dtype="float32")}
+
+
+@pytest.mark.parametrize("name", sorted(PERIOD8))
+def test_period_8_stacks_cross_both_ways(name, tmp_path):
+    """Layer i is row i // 8 of ``body/p{i % 8}``: the reference's
+    period-stacked parameters load in the port, come back equal through
+    ``to_jax_tree`` and a checkpoint, and give the reference's logits."""
+    import dataclasses
+    jc = dataclasses.replace(jconfigs.get_config(name), **PERIOD8[name])
+    tc = dataclasses.replace(configs.get_config(name), **PERIOD8[name])
+    assert jc.period == 8 and jc.n_periods == 2
+    params = jax.tree.map(np.asarray,
+                          init_params(jc, jax.random.PRNGKey(6)))
+    model = bridge.from_jax(params, tc, device="cpu")
+    assert [blk.block_type for blk in model.layers] == \
+        list(jc.block_pattern) * 2
+    path = os.path.join(tmp_path, "p8")
+    tckpt.save(path, bridge.to_jax_tree(model))
+    _assert_same_tree(jckpt.load(path, like=_like(jc)), params)
+    toks = _tokens(jc.vocab)
+    ref = jmodel.forward_logits(jc, jax.tree.map(jnp.asarray, params),
+                                jnp.asarray(toks))
+    with torch.no_grad():
+        got = tmodel.forward_logits(model, torch.from_numpy(toks).long())
+    # 16 layers deep, rounding grows layer by layer (the recurrent models
+    # amplify it most): the reference's cache-consistency bound
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=3e-4)
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_init_params_constant_leaves_equal_reference(name):
+    """``bridge.init_params`` gives every leaf the reference initialises
+    to a constant (norms, biases, D and dt_bias, the forget-gate biases of
+    mLSTM and sLSTM) the reference's value exactly; Mamba's A_log =
+    log(1..d_state) within one float32 ulp (torch's log(7) is the
+    correctly rounded one, XLA's an ulp below); and each random leaf the
+    reference's scale 1/sqrt(fan_in) within 20%."""
+    jc, tc = _cfgs(name)
+    ref = jax.tree.map(np.asarray, init_params(jc, jax.random.PRNGKey(0)))
+    got = bridge.to_jax_tree(bridge.init_params(
+        tc, torch.Generator().manual_seed(0), device="cpu"))
+    flat_r = {jax.tree_util.keystr(p): r for p, r in
+              jax.tree_util.tree_leaves_with_path(ref)}
+    flat_g = {jax.tree_util.keystr(p): g for p, g in
+              jax.tree_util.tree_leaves_with_path(got)}
+    assert sorted(flat_r) == sorted(flat_g)
+    n_const = 0
+    for key, g in flat_g.items():
+        r = flat_r[key]
+        assert g.shape == r.shape, key
+        if "A_log" in key:
+            ulps = np.abs(g.view(np.int32).astype(np.int64)
+                          - r.view(np.int32).astype(np.int64))
+            assert ulps.max() <= 1, key
+            n_const += 1
+        elif "b_in" in key or np.all(r == r.flat[0]):
+            np.testing.assert_array_equal(g, r, err_msg=key)
+            n_const += 1
+        else:
+            ratio = float(g.std()) / float(r.std())
+            assert abs(ratio - 1.0) < 0.2, (key, ratio)
+    assert n_const == {"xlstm-1.3b": 8, "jamba-1.5-large-398b": 15}[name]
 
 
 def _train(cfg, steps, seed, data):

@@ -82,8 +82,8 @@ def test_extend_and_decode_logits(bridged, L):
     pos = np.array([9, 7, 4], np.int32)         # ragged rows
     new = _toks(rng, (3, L), jcfg.vocab)
     lj, cj = extend_step(jcfg, jp, jnp.asarray(new), cj, jnp.asarray(pos))
-    lt, ct = tmodel.extend_step(m, torch.from_numpy(new).long(), ct,
-                                torch.from_numpy(pos).long())
+    lt, ct, _ = tmodel.extend_step(m, torch.from_numpy(new).long(), ct,
+                                   torch.from_numpy(pos).long())
     assert lt.shape == (3, L, jcfg.vocab) and lt.dtype == torch.float32
     np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
     tok = _toks(rng, (3,), jcfg.vocab)

@@ -119,8 +119,8 @@ def test_prefill_extend_decode_logits(which, L):
     pos = np.array([9, 7, 4], np.int32)
     new = rng.integers(0, jc.vocab, (3, L)).astype(np.int32)
     lj, cj = extend_step(jc, jp, jnp.asarray(new), cj, jnp.asarray(pos))
-    lt, ct = tmodel.extend_step(m, torch.from_numpy(new).long(), ct,
-                                torch.from_numpy(pos).long())
+    lt, ct, _ = tmodel.extend_step(m, torch.from_numpy(new).long(), ct,
+                                   torch.from_numpy(pos).long())
     np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
     tok = rng.integers(0, jc.vocab, (3,)).astype(np.int32)
     lj, _ = decode_step(jc, jp, jnp.asarray(tok), cj, jnp.asarray(pos + L))

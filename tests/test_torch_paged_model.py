@@ -96,7 +96,7 @@ def test_paged_equals_dense_bitwise(variant, L):
         steps = []
         for _ in range(2):                       # second step reads the first
             toks = torch.from_numpy(rng.integers(0, tcfg.vocab, (B, L)))
-            logits, cache = tmodel.extend_step(model, toks, cache, pos)
+            logits, cache, _ = tmodel.extend_step(model, toks, cache, pos)
             steps.append(logits[:2])             # slot 2: trash page
             pos = pos + L
         out[paged] = torch.stack(steps)
@@ -146,7 +146,7 @@ def test_serving_cache_logits_vs_reference(variant, paged):
     for _ in range(2):
         toks = rng.integers(0, tcfg.vocab, (B, L))
         lj, cj = ext(jp, jnp.asarray(toks, jnp.int32), cj, pj)
-        lt, ct = tmodel.extend_step(model, torch.from_numpy(toks), ct, pt)
+        lt, ct, _ = tmodel.extend_step(model, torch.from_numpy(toks), ct, pt)
         np.testing.assert_allclose(np.asarray(lj)[:2], lt[:2].numpy(),
                                    atol=ATOL)
         pj, pt = pj + L, pt + L

@@ -10,8 +10,10 @@ bridged:
   there, are decayed, ``final_norm`` is not;
 - ``train_loss`` (loss within 1e-5; ce, aux, accuracy) and every gradient
   leaf, stacked by ``to_jax_tree``, within 1e-4 * max(1, max|g_ref|), for
-  a dense GQA config with biases, the paper's MHA pair and the MoE family
-  (a random batch, and one that overflows the experts' capacity);
+  a dense GQA config with biases, the paper's MHA pair, the MoE family
+  (a random batch, and one that overflows the experts' capacity) and the
+  SSM / hybrid family (xLSTM's parallel mLSTM and sLSTM, Jamba's Mamba
+  with attention and MoE);
 - ``microbatches=4`` equals ``microbatches=1`` (as tests/test_train.py);
 - a 10-step loss curve from the same parameters and batches.
 """
@@ -164,7 +166,8 @@ def _batch(name, jc, kind):
 
 
 LOSS_CASES = [("qwen2.5-3b", "random"), ("gptneo-1.3b", "random"),
-              ("qwen2-moe-a2.7b", "random"), ("qwen2-moe-a2.7b", "overflow")]
+              ("qwen2-moe-a2.7b", "random"), ("qwen2-moe-a2.7b", "overflow"),
+              ("xlstm-1.3b", "random"), ("jamba-1.5-large-398b", "random")]
 
 
 @pytest.mark.parametrize("name,kind", LOSS_CASES)
