@@ -97,10 +97,29 @@ Phases:
      and bf16: the sequence form with its trajectory against the step
      loop; then a pipelined trace and a TCP handshake with a stateful
      target, each refused, with the peak memory of the phase.
+ 13. MLA with its dense prefix layer, and the sliding window, after the
+     SSM models are freed: (a) full-width ``deepseek-v2-lite-16b`` (27
+     layers, the first a dense MLP layer, MLA with kv_lora 512 and
+     rope_hd 64, 64 routed top-6 + 2 shared experts, V 102400) with its
+     2x draft, seeded bf16 weights: fixed-batch rounds of all four
+     methods at the phase-3 settings, both SQS kernels against their
+     twins at the draft's next-step logits (Vp 102400), one K-SQS draft
+     call and one verify forward under torch.profiler (busy share, GEMM
+     time, the MoE layers' share), and a 4-request trace served dense
+     lockstep, paged lockstep and paged pipelined with equal streams;
+     (b) the ring of ``for_shape(qwen2.5-3b, long_500k)`` (W 8192) at
+     full width: a prompt RING_PAST positions past W prefilled (the ring
+     wrapped), RING_STEPS decode steps through it against the windowed
+     teacher-forced logits, in bf16 and in float32, each within its
+     bound of RING_ATOL, and the reference's ring check at the float32
+     smoke variant (W 8) at RING_SMOKE_ATOL; (c) one K-SQS round served
+     on the full-width ring at a capacity it cannot wrap, then a
+     fixed-batch run and a slot allocation whose ring would wrap, each
+     refused with ``WindowWrapError`` and nothing else.
 
 Every phase that drives a path sets the kernels' launch counts to 0
 just before it and reads them just after; the SQS rows of the kernels
-line add the launches of phases 3, 5, 8, 9, 10, 11 and 12.
+line add the launches of phases 3, 5, 8, 9, 10, 11, 12 and 13.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -116,6 +135,7 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -749,7 +769,7 @@ def profile_draft(eng):
     if dev_us == 0.0:
         print("  profiler, one ksqs draft call: the profiler saw no device "
               "time (device-busy share not measured)")
-        return
+        return prof, dev_us
     print(f"  profiler, one ksqs draft call ({L_MAX + 1} decode steps, "
           f"torch.profiler): wall {wall * 1e3:.2f} ms ({bare * 1e3:.2f} ms "
           f"unprofiled), device busy "
@@ -762,6 +782,7 @@ def profile_draft(eng):
     print("    most device time: " + "; ".join(
         f"{key[:60]} {t / 1e3:.3f} ms over {n} calls"
         for t, n, key in sorted(by_op, reverse=True)[:6]))
+    return prof, dev_us
 
 
 # ----------------------------------------------------------------------
@@ -1500,7 +1521,7 @@ def profile_verify(eng):
     if dev_us == 0.0:
         print("  profiler, one verify forward: the profiler saw no device "
               f"time (not measured); unprofiled wall {bare * 1e3:.2f} ms")
-        return
+        return prof, dev_us
     bmm = sum(t for t, _, key in by_op if "gemm" in key.lower()
               or "nvjet" in key.lower())
     print(f"  profiler, one verify forward (B {toks.shape[0]}, "
@@ -1513,6 +1534,8 @@ def profile_verify(eng):
     print("    most device time: " + "; ".join(
         f"{key[:60]} {t / 1e3:.3f} ms over {n} calls"
         for t, n, key in sorted(by_op, reverse=True)[:6]))
+    return prof, dev_us
+
 
 def phase_moe(dev):
     """qwen2-moe-a2.7b at full width (24 layers, 60 routed top-4 + 4
@@ -1527,8 +1550,7 @@ def phase_moe(dev):
     from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
                                          MethodConfig, summarize)
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import ref, sqs_fused as k
-    from repro_torch.kernels.ops import pad_logits
+    from repro_torch.kernels import sqs_fused as k
     t0 = time.perf_counter()
     tc = configs.get_config(MOE_ARCH)
     dc = configs.draft_variant(tc, 2)
@@ -1581,26 +1603,10 @@ def phase_moe(dev):
                                           for r in rounds))
         engines[method] = eng
     profile_verify(engines["csqs"])
-    # both SQS kernels against their twins at the draft's next-step logits
     for method, eng in engines.items():
-        lg = edge_logits(eng)
-        check(bool(torch.isfinite(lg).all()), f"moe {method}: logits")
-        lp = pad_logits(lg)[0]
-        if method == "csqs":
-            beta2 = torch.stack([eng.edge.beta, eng.edge.beta], -1) \
-                .contiguous()
-            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
-                                 "moe sqs_fused at the draft's logits")
-        else:
-            tau = k.topk_threshold(lp, 64, inv_temp=1.0)
-            tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), 64)
-            nd, nb = compare_sqs(lp, tau, 1.0, 100, 64,
-                                 "moe sqs_topk at the draft's logits", tau_r)
-        check(nb == 0, f"moe {method}: {nb} rows differ from the twin "
-              f"outside the boundary rule")
-        print(f"  {method} kernels at the draft's next-step logits (B="
-              f"{lp.shape[0]}, Vp={lp.shape[1]}): {nd} rows differ from the "
-              f"twin, {nb} unexcused")
+        check(bool(torch.isfinite(edge_logits(eng)).all()),
+              f"moe {method}: logits")
+    hold_sqs_at_draft_logits("moe", engines)
     del engines, eng
     trace = dict(n_requests=4, rate_rps=4.0, prompt_len=PROMPT_LEN,
                  min_new_tokens=6, max_new_tokens=10, vocab=tc.vocab, seed=5)
@@ -1923,6 +1929,101 @@ def stateful_logits(model, cache, token, pos):
     return logits
 
 
+def fixed_batch_methods(tag, dc, dp, tc, tp, dev, prompts):
+    """Fixed-batch rounds of all four methods at the phase-3 settings
+    through ``EdgeCloudEngine.run`` (ROUNDS rounds of ksqs and csqs, one
+    of qs and uncompressed): each kernel launched once a draft step where
+    its method runs it, tokens in [0, V), every payload well formed, and
+    both sides' next-token logits finite after the run.  Prints t_slm,
+    t_llm and the accepted tokens; returns (engines by method, the SQS
+    launches of the runs)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig, summarize)
+    from repro_torch.kernels import sqs_fused as k
+    launches = {name: 0 for name in k.LAUNCHES}
+    engines = {}
+    for method, n_rounds in (("ksqs", ROUNDS), ("csqs", ROUNDS),
+                             ("qs", 1), ("uncompressed", 1)):
+        eng = EdgeCloudEngine(dc, dp, tc, tp,
+                              MethodConfig(method, K=64, ell=100),
+                              EngineConfig(L_max=L_MAX), seed=0, device=dev)
+        k.reset_launches()
+        t1 = time.perf_counter()
+        rounds, toks = eng.run(prompts, n_rounds)
+        got = dict(k.LAUNCHES)
+        steps = n_rounds * (L_MAX + 1)
+        want = {"sqs_fused": steps if method in ("ksqs", "csqs") else 0,
+                "topk_threshold": steps if method == "ksqs" else 0}
+        check(got == want, f"{tag} {method}: launches {got} != {want}")
+        for name in launches:
+            launches[name] += got[name]
+        for row in toks:
+            check(len(row) >= n_rounds
+                  and all(0 <= t < tc.vocab for t in row),
+                  f"{tag} {method}: tokens {row}")
+        for r in rounds:
+            for data_ in r["packed"].values():
+                p = eng.fmt.unpack_draft(data_)
+                check(p.n_drafts >= 1, f"{tag} {method}: empty payload")
+                if p.probs is not None:
+                    check(all(np.isfinite(pr).all() for pr in p.probs),
+                          f"{tag} {method}: raw probabilities not finite")
+                else:
+                    check(all(sum(c) == 100 for c in p.counts),
+                          f"{tag} {method}: transmitted sum b != ell")
+        s = summarize(rounds)
+        acc = [float(r["n_accept"].mean()) for r in rounds]
+        print(f"  {method}/v1: {n_rounds} rounds in "
+              f"{time.perf_counter() - t1:.1f} s; mean K "
+              f"{s['mean_K']:.1f}; accepted tokens a row a round "
+              + " ".join(f"{a:.2f}" for a in acc) + f"; launches {got}")
+        print("    t_slm ms " + " ".join(f"{r['t_slm'] * 1e3:.2f}"
+                                           for r in rounds)
+              + " | t_llm ms " + " ".join(f"{r['t_llm'] * 1e3:.2f}"
+                                          for r in rounds))
+        lg = stateful_logits(eng.edge.model, eng.edge.dcache,
+                             eng.edge.x_last, eng.edge.pos)
+        lt = stateful_logits(eng.cloud.model, eng.cloud.tcache,
+                             eng.cloud.x_last, eng.cloud.pos)
+        check(bool(torch.isfinite(lg).all() and torch.isfinite(lt).all()),
+              f"{tag} {method}: NaN/inf logits")
+        engines[method] = eng
+    print(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+          f"allocated over the four methods")
+    return engines, launches
+
+
+def hold_sqs_at_draft_logits(tag, engines):
+    """Both SQS kernels against their twins at the draft's next-step
+    logits after the ksqs and csqs runs of ``fixed_batch_methods``: no row
+    may differ outside the boundary rule."""
+    import torch
+    from repro_torch.kernels import ref, sqs_fused as k
+    from repro_torch.kernels.ops import pad_logits
+    for method in ("ksqs", "csqs"):
+        eng = engines[method]
+        lp = pad_logits(stateful_logits(eng.edge.model, eng.edge.dcache,
+                                        eng.edge.x_last, eng.edge.pos))[0]
+        if method == "csqs":
+            beta2 = torch.stack([eng.edge.beta, eng.edge.beta], -1) \
+                .contiguous()
+            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
+                                 f"{tag} sqs_fused at the draft's logits")
+        else:
+            tau = k.topk_threshold(lp, 64, inv_temp=1.0)
+            tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), 64)
+            nd, nb = compare_sqs(lp, tau, 1.0, 100, 64,
+                                 f"{tag} sqs_topk at the draft's logits",
+                                 tau_r)
+        check(nb == 0, f"{tag} {method}: {nb} rows differ from the twin "
+              f"outside the boundary rule")
+        print(f"  {method} kernels at the draft's next-step logits (B="
+              f"{lp.shape[0]}, Vp={lp.shape[1]}): {nd} rows differ from the "
+              f"twin, {nb} unexcused")
+
+
 def rollback_engine(dc, dp, tc, tp, dev, prompts, l_max, label):
     """``ROUNDS`` uncompressed rounds of the pair with every draft sent;
     fails unless some row accepted a token.  Returns the engine."""
@@ -2084,15 +2185,10 @@ def phase_ssm_full_width(dev, failures):
     bf16 and then in float32, each row's rolled-back target and draft
     states against a fresh prefill of its verified prefix.  Returns the
     SQS launches of the path."""
-    import numpy as np
     import torch
     from repro_torch import configs
     from repro_torch.bridge import seeded_model
-    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
-                                         MethodConfig, summarize)
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import ref, sqs_fused as k
-    from repro_torch.kernels.ops import pad_logits
     t0 = time.perf_counter()
     tc = configs.get_config(SSM_ARCH)
     dc = configs.draft_variant(tc, 2)
@@ -2112,78 +2208,11 @@ def phase_ssm_full_width(dev, failures):
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
     data = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77))
     prompts = data.sample(BATCH, PROMPT_LEN)[:, :-1]
-    launches = {name: 0 for name in k.LAUNCHES}
-    engines = {}
-    for method, n_rounds in (("ksqs", ROUNDS), ("csqs", ROUNDS),
-                             ("qs", 1), ("uncompressed", 1)):
-        eng = EdgeCloudEngine(dc, dp, tc, tp,
-                              MethodConfig(method, K=64, ell=100),
-                              EngineConfig(L_max=L_MAX), seed=0, device=dev)
-        k.reset_launches()
-        t1 = time.perf_counter()
-        rounds, toks = eng.run(prompts, n_rounds)
-        got = dict(k.LAUNCHES)
-        steps = n_rounds * (L_MAX + 1)
-        want = {"sqs_fused": steps if method in ("ksqs", "csqs") else 0,
-                "topk_threshold": steps if method == "ksqs" else 0}
-        check(got == want, f"ssm {method}: launches {got} != {want}")
-        for name in launches:
-            launches[name] += got[name]
-        for row in toks:
-            check(len(row) >= n_rounds
-                  and all(0 <= t < tc.vocab for t in row),
-                  f"ssm {method}: tokens {row}")
-        for r in rounds:
-            for data_ in r["packed"].values():
-                p = eng.fmt.unpack_draft(data_)
-                check(p.n_drafts >= 1, f"ssm {method}: empty payload")
-                if p.probs is not None:
-                    check(all(np.isfinite(pr).all() for pr in p.probs),
-                          f"ssm {method}: raw probabilities not finite")
-                else:
-                    check(all(sum(c) == 100 for c in p.counts),
-                          f"ssm {method}: transmitted sum b != ell")
-        s = summarize(rounds)
-        acc = [float(r["n_accept"].mean()) for r in rounds]
-        print(f"  {method}/v1: {n_rounds} rounds in "
-              f"{time.perf_counter() - t1:.1f} s; mean K "
-              f"{s['mean_K']:.1f}; accepted tokens a row a round "
-              + " ".join(f"{a:.2f}" for a in acc) + f"; launches {got}")
-        print("    t_slm ms " + " ".join(f"{r['t_slm'] * 1e3:.2f}"
-                                           for r in rounds)
-              + " | t_llm ms " + " ".join(f"{r['t_llm'] * 1e3:.2f}"
-                                          for r in rounds))
-        lg = stateful_logits(eng.edge.model, eng.edge.dcache,
-                             eng.edge.x_last, eng.edge.pos)
-        lt = stateful_logits(eng.cloud.model, eng.cloud.tcache,
-                             eng.cloud.x_last, eng.cloud.pos)
-        check(bool(torch.isfinite(lg).all() and torch.isfinite(lt).all()),
-              f"ssm {method}: NaN/inf logits")
-        engines[method] = eng
-    print(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
-          f"allocated over the four methods")
+    engines, launches = fixed_batch_methods("ssm", dc, dp, tc, tp, dev,
+                                            prompts)
     profile_stateful_draft(engines["ksqs"])
-    # both SQS kernels against their twins at the draft's next-step logits
-    for method in ("ksqs", "csqs"):
-        eng = engines[method]
-        lp = pad_logits(stateful_logits(eng.edge.model, eng.edge.dcache,
-                                        eng.edge.x_last, eng.edge.pos))[0]
-        if method == "csqs":
-            beta2 = torch.stack([eng.edge.beta, eng.edge.beta], -1) \
-                .contiguous()
-            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
-                                 "ssm sqs_fused at the draft's logits")
-        else:
-            tau = k.topk_threshold(lp, 64, inv_temp=1.0)
-            tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), 64)
-            nd, nb = compare_sqs(lp, tau, 1.0, 100, 64,
-                                 "ssm sqs_topk at the draft's logits", tau_r)
-        check(nb == 0, f"ssm {method}: {nb} rows differ from the twin "
-              f"outside the boundary rule")
-        print(f"  {method} kernels at the draft's next-step logits (B="
-              f"{lp.shape[0]}, Vp={lp.shape[1]}): {nd} rows differ from the "
-              f"twin, {nb} unexcused")
-    del engines, eng
+    hold_sqs_at_draft_logits("ssm", engines)
+    del engines
     gc.collect()
     torch.cuda.empty_cache()
     print("phase 12 (b): rolled-back target and draft caches against a "
@@ -2393,6 +2422,268 @@ def phase_ssm(dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 13: MLA with its dense prefix layer, and the sliding window
+# ----------------------------------------------------------------------
+MLA_ARCH, WINDOW_ARCH = "deepseek-v2-lite-16b", "qwen2.5-3b"
+# (b) for_shape(qwen2.5-3b, long_500k) at full width: a prompt RING_PAST
+# positions longer than its window W (so the ring has wrapped), then
+# RING_STEPS decode steps through the ring against the teacher-forced
+# windowed logits of the same tokens (W + RING_PAST and W + RING_PAST +
+# RING_STEPS are multiples of 32, so both passes run in query chunks of 32
+# or more).  Bounds on max |logit difference|, set before the first card
+# run: a ring that lost or mislabelled keys decorrelates the logits by
+# whole units; the next-token argmax must agree wherever the recompute's
+# top-2 gap exceeds the bound.  At the float32 smoke variant the
+# reference's own ring test (W 8, a 12-token prompt, 24 tokens) at its
+# bound.
+RING_PAST, RING_STEPS = 32, 32
+RING_ATOL = {"bfloat16": 0.5, "float32": 1e-3}
+RING_SMOKE_ATOL = 2e-4
+
+
+@contextlib.contextmanager
+def moe_ranges(model):
+    """Each MoE layer's forward inside a ``record_function("moe")`` range,
+    so a profile can total the device time of its kernels."""
+    import torch
+    from repro_torch.models.moe import MoE
+    opened, hooks = [], []
+
+    def enter(mod, args):
+        rf = torch.profiler.record_function("moe")
+        rf.__enter__()
+        opened.append(rf)
+
+    def leave(mod, args, out):
+        opened.pop().__exit__(None, None, None)
+    for m in model.modules():
+        if isinstance(m, MoE):
+            hooks += [m.register_forward_pre_hook(enter),
+                      m.register_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def moe_share(label, prof, dev_us):
+    """The device time of the ``moe`` ranges of a profile and its share of
+    the profile's device time."""
+    import torch
+    if dev_us == 0.0:
+        print(f"    {label}: MoE share not measured (no device time)")
+        return
+    moe_us = sum(ev.device_time_total for ev in prof.events()
+                 if ev.name == "moe"
+                 and ev.device_type == torch.autograd.DeviceType.CPU)
+    print(f"    {label}: MoE layers {moe_us / 1e3:.3f} ms of device time = "
+          f"{moe_us / dev_us:.3f} of it")
+
+
+def phase_mla(dev):
+    """(a) deepseek-v2-lite-16b at full width with its 2x draft.  Returns
+    the SQS launches of the path."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sqs_fused as k
+    t0 = time.perf_counter()
+    tc = configs.get_config(MLA_ARCH)
+    dc = configs.draft_variant(tc, 2)
+    tp = seeded_model(tc, 1, dev)
+    dp = seeded_model(dc, 2, dev)
+    torch.cuda.synchronize()
+    n_t = sum(p.numel() for p in tp.parameters())
+    n_d = sum(p.numel() for p in dp.parameters())
+    print(f"phase 13 (a): {tc.name} ({tc.n_layers} layers, the first "
+          f"dense; d {tc.d_model}, {tc.n_heads} heads, MLA kv_lora "
+          f"{tc.kv_lora_rank}, rope_hd {tc.rope_head_dim}; "
+          f"{tc.n_experts} routed top-{tc.moe_top_k} + "
+          f"{tc.n_shared_experts} shared experts of {tc.d_expert}; V "
+          f"{tc.vocab}; {n_t / 1e9:.3f} B params) <- {dc.name} "
+          f"({dc.n_layers} layers, d {dc.d_model}, kv_lora "
+          f"{dc.kv_lora_rank}; {n_d / 1e9:.3f} B params), {tp.dtype} "
+          f"weights built in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    data = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77))
+    prompts = data.sample(BATCH, PROMPT_LEN)[:, :-1]
+    engines, launches = fixed_batch_methods("mla", dc, dp, tc, tp, dev,
+                                            prompts)
+    eng = engines["ksqs"]
+    for side, cache in (("target", eng.cloud.tcache),
+                        ("draft", eng.edge.dcache)):
+        check(all(sorted(c) == ["k_rope", "latent"] and
+                  c["latent"].dtype == tp.dtype for c in cache),
+              f"mla {side}: cache leaves")
+        lat, rope = cache[0]["latent"], cache[0]["k_rope"]
+        per_token = (lat.shape[-1] + rope.shape[-1]) * lat.element_size()
+        print(f"  {side} cache: {len(cache)} layers of latent "
+              f"{tuple(lat.shape)} + k_rope {tuple(rope.shape)}, "
+              f"{lat.dtype}; {per_token} B a token a layer")
+    with moe_ranges(dp), moe_ranges(tp):
+        moe_share("the draft call", *profile_draft(eng))
+        moe_share("the verify forward", *profile_verify(eng))
+    hold_sqs_at_draft_logits("mla", engines)
+    del engines, eng
+    trace = dict(n_requests=4, rate_rps=4.0, prompt_len=PROMPT_LEN,
+                 min_new_tokens=4, max_new_tokens=6, vocab=tc.vocab, seed=5)
+    k.reset_launches()
+    t1 = time.perf_counter()
+    dense = serve_run("mla dense lockstep", dc, dp, tc, tp, dev, trace)
+    paged = serve_run("mla paged(16) lockstep", dc, dp, tc, tp, dev, trace,
+                      page_size=PAGE)
+    pipe = serve_run("mla paged(16) pipelined + speculation", dc, dp, tc,
+                     tp, dev, trace, page_size=PAGE, pipeline="pipelined")
+    check(dense == paged == pipe, "mla: paged or pipelined streams differ "
+          "from dense lockstep")
+    check(k.LAUNCHES["sqs_fused"] > 0, "mla serving never launched "
+          "sqs_fused")
+    for name, n in k.LAUNCHES.items():
+        launches[name] += n
+    print(f"  mla streams equal across dense lockstep, paged lockstep and "
+          f"paged pipelined: {len(dense)} requests, "
+          f"{sum(map(len, dense.values()))} tokens; serving launches "
+          f"{dict(k.LAUNCHES)}; {time.perf_counter() - t1:.1f} s")
+    return launches
+
+
+def ring_check(model, toks, n_steps, atol, label):
+    """Prefill all but the last ``n_steps`` tokens of ``toks`` (1, S) into
+    a cache of capacity S, decode the rest one step at a time, and hold
+    each step's logits against the teacher-forced logits of ``toks``:
+    max |difference| within ``atol``, and the argmax equal wherever the
+    recompute's top-2 gap exceeds ``atol``."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import model as model_mod
+    S = toks.shape[1]
+    S_p, W = S - n_steps, attn_mod.window(model.cfg)
+    with torch.no_grad():
+        full = model_mod.forward_logits(model, toks)[0, S_p:].clone()
+    _, cache = model_mod.prefill(model, toks[:, :S_p], cache_len=S)
+    ring = cache[0]["k"].shape[1]
+    check(ring == min(W, S), f"{label}: a ring of {ring} slots")
+    worst, near_ties = 0.0, 0
+    for t in range(n_steps):
+        pos = torch.full((1,), S_p + t, device=toks.device)
+        lg, cache = model_mod.decode_step(model, toks[:, S_p + t], cache,
+                                          pos)
+        ref = full[t]
+        worst = max(worst, float((lg[0] - ref).abs().max()))
+        if int(lg[0].argmax()) != int(ref.argmax()):
+            top2 = ref.topk(2).values
+            check(float(top2[0] - top2[1]) <= atol,
+                  f"{label}: step {t} argmax differs (gap "
+                  f"{float(top2[0] - top2[1]):.3g})")
+            near_ties += 1
+    print(f"  {label}: W {W}, prompt {S_p} (the ring wrapped "
+          f"{S_p // W} time(s)), {n_steps} decode steps through the ring: "
+          f"max |logit difference| {worst:.3g} (bound {atol}); argmax "
+          f"equal in {n_steps - near_ties} of {n_steps}, the rest near "
+          f"ties of the recompute")
+    check(worst <= atol, f"{label}: {worst:.3g} > {atol}")
+
+
+def phase_window(dev):
+    """(b) the ring at full width in bf16 and float32 and at the float32
+    smoke variant; (c) a K-SQS round on the full-width ring where it
+    cannot wrap, then the refusals where it would.  Returns the SQS
+    launches of (c)'s round."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig, WindowWrapError)
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sqs_fused as k
+    tc = configs.for_shape(configs.get_config(WINDOW_ARCH),
+                           configs.INPUT_SHAPES["long_500k"])
+    W = tc.sliding_window
+    print(f"phase 13 (b): {tc.name} for long_500k ({tc.attention}, W {W}) "
+          f"at full width ({tc.n_layers} layers, d {tc.d_model}, "
+          f"{tc.n_heads}/{tc.n_kv_heads} heads)")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    toks = torch.randint(0, tc.vocab, (1, W + RING_PAST + RING_STEPS),
+                         generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        t1 = time.perf_counter()
+        tp = seeded_model(tc, 1, dev, dtype=dtype)
+        name = str(dtype).split(".")[-1]
+        ring_check(tp, toks, RING_STEPS, RING_ATOL[name],
+                   f"full width {name}")
+        print(f"    {time.perf_counter() - t1:.1f} s; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+        if dtype == torch.float32:
+            del tp
+            gc.collect()
+            torch.cuda.empty_cache()
+    smoke = dataclasses.replace(
+        configs.smoke_variant(configs.get_config(WINDOW_ARCH)),
+        attention="sliding", sliding_window=8)
+    ring_check(seeded_model(smoke, 0, dev), toks[:, :24] % smoke.vocab, 12,
+               RING_SMOKE_ATOL, "smoke float32")
+    dc = configs.draft_variant(tc, 2)
+    dp = seeded_model(dc, 2, dev)
+    print(f"phase 13 (c): {tc.name} (W {W}) <- {dc.name} (W "
+          f"{dc.sliding_window}) served, then refused where the ring would "
+          "wrap")
+    eng = EdgeCloudEngine(dc, dp, tc, tp, MethodConfig("ksqs", K=64,
+                                                       ell=100),
+                          EngineConfig(L_max=L_MAX), seed=0, device=dev)
+    prompts = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77)).sample(
+        BATCH, PROMPT_LEN)[:, :-1]
+    k.reset_launches()
+    rounds, out = eng.run(prompts, 1)
+    launches = dict(k.LAUNCHES)
+    check(launches == {"sqs_fused": L_MAX + 1, "topk_threshold": L_MAX + 1},
+          f"window: launches {launches}")
+    check(all(len(row) >= 1 and all(0 <= t < tc.vocab for t in row)
+              for row in out), f"window: tokens {out}")
+    print(f"  one ksqs round at capacity {eng.cloud.cache_len} <= W: ring of "
+          f"{eng.tcache[0]['k'].shape[1]} slots, t_slm "
+          f"{rounds[0]['t_slm'] * 1e3:.2f} ms, t_llm "
+          f"{rounds[0]['t_llm'] * 1e3:.2f} ms; launches {launches}")
+    long_prompts = torch.zeros((BATCH, W - 4096 + 1), dtype=torch.int64)
+    for label, call in (
+            (f"fixed batch of {long_prompts.shape[1]}-token prompts "
+             f"(capacity {long_prompts.shape[1] + 4096})",
+             lambda: eng.run(long_prompts, 1)),
+            (f"{SLOTS} slots of capacity {W + PAGE}",
+             lambda: eng.init_slots(SLOTS, W + PAGE))):
+        try:
+            call()
+        except WindowWrapError as e:
+            print(f"  {label}: refused: {e}")
+        else:
+            raise CheckFailed(f"{label}: served on a ring that wraps")
+    eng.init_slots(SLOTS, W)
+    print(f"  {SLOTS} slots of capacity {W}: allowed")
+    return launches
+
+
+def phase_mla_window(dev):
+    """Phase 13, after the earlier models are freed.  Returns the SQS
+    launches of the phase."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launches = phase_mla(dev)
+    print(f"  phase 13 (a): {time.perf_counter() - t0:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in phase_window(dev).items():
+        launches[name] += n
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated; SQS "
+          f"launches {launches}")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2448,12 +2739,18 @@ def main():
     ssm_launches = phase_ssm(dev)
     check(all(n > 0 for n in ssm_launches.values()), "phase 12 never "
           f"launched a kernel: {ssm_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_launches = phase_mla_window(dev)
+    check(all(n > 0 for n in mla_launches.values()), "phase 13 never "
+          f"launched a kernel: {mla_launches}")
     for r in rows:
         r["launches"] += (tcp_launches.get(r["name"], 0)
                           + moe_launches.get(r["name"], 0)
                           + pair_launches.get(r["name"], 0)
-                          + ssm_launches.get(r["name"], 0))
-    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s")
+                          + ssm_launches.get(r["name"], 0)
+                          + mla_launches.get(r["name"], 0))
+    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

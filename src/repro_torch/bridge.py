@@ -4,9 +4,11 @@ fresh, and back.
 ``from_jax`` takes the numpy'd parameter tree of
 ``repro.models.init_params`` (``jax.tree.map(np.asarray, params)``, or
 a checkpoint's ``train.checkpoint.load``) and fills a ``Transformer``
-with it: body leaves are period-stacked, layer i at index i // P of the
-leaves of period position ``p{i % P}`` (P the config's period, 1 for a
-homogeneous stack), and are unstacked one layer each.  ``to_jax_tree`` is its inverse: the reference's nested
+with it: the dense prefix layers' leaves are unstacked, prefix layer i
+under ``prefix/l{i}``; body leaves are period-stacked, body layer j (layer
+n_prefix + j) at index j // P of the leaves of period position ``p{j % P}``
+(P the config's period, 1 for a homogeneous stack), and are unstacked one
+layer each.  ``to_jax_tree`` is its inverse: the reference's nested
 numpy tree in float32, body leaves stacked again.  Neither imports
 anything of the JAX package.
 
@@ -45,15 +47,19 @@ SSM_LEAVES = {
 }
 
 
+MLA_LEAVES = ("w_q", "w_dkv", "w_krope", "w_uk", "w_uv", "w_o")
+
+
 def leaves(model: Transformer):
-    """(parameter, jax path) pairs in a fixed order; a path ends in a
-    period index for body leaves: layer i's leaf is row i // P of the
-    reference's ``body/p{i % P}/...`` stack."""
+    """(parameter, jax path) pairs in a fixed order.  A prefix layer's
+    path is ``prefix/l{i}/...``; a body leaf's ends in a period index:
+    body layer j's leaf is row j // P of the reference's
+    ``body/p{j % P}/...`` stack."""
     out = [(model.embedding, ("embed", "embedding")),
            (model.final_norm, ("final_norm",))]
     if model.lm_head is not None:
         out.append((model.lm_head, ("embed", "lm_head")))
-    P = model.cfg.period
+    P, n_prefix = model.cfg.period, model.cfg.n_prefix_layers
     for i, blk in enumerate(model.layers):
         leaves = {"norm1": blk.norm1}
         if blk.norm2 is not None:
@@ -62,6 +68,9 @@ def leaves(model: Transformer):
             m = blk.mixer
             leaves.update({f"{blk.block_type}/{n}": getattr(m, n)
                            for n in SSM_LEAVES[blk.block_type]})
+        elif model.cfg.is_mla:
+            leaves.update({f"attn/{n}": getattr(blk.attn, n)
+                           for n in MLA_LEAVES})
         else:
             a = blk.attn
             leaves.update({"attn/w_q": a.w_q, "attn/w_k": a.w_k,
@@ -74,13 +83,17 @@ def leaves(model: Transformer):
                            "moe/w_up": m.w_up, "moe/w_down": m.w_down})
             if m.shared is not None:
                 leaves.update(_mlp_leaves("moe/shared", m.shared))
-        if not blk.stateful and blk.attn.b_q is not None:
+        if not blk.stateful and getattr(blk.attn, "b_q", None) is not None:
             a = blk.attn
             leaves.update({"attn/b_q": a.b_q, "attn/b_k": a.b_k,
                            "attn/b_v": a.b_v})
+        j = i - n_prefix
         for path, prm in leaves.items():
-            out.append((prm, ("body", f"p{i % P}", *path.split("/"),
-                              i // P)))
+            if j < 0:
+                out.append((prm, ("prefix", f"l{i}", *path.split("/"))))
+            else:
+                out.append((prm, ("body", f"p{j % P}", *path.split("/"),
+                                  j // P)))
     return out
 
 
@@ -141,7 +154,9 @@ def _fan_in(path, shape) -> int:
     1, for the attention output (nq, hd, d) the first two together, for
     mLSTM's per-head projections (nh, dh, dh) and sLSTM's recurrent
     weights (4, nh, dh, dh) the head width dh, and for the embedding
-    (V, d) the width d."""
+    (V, d) the width d.  The MLA leaves need no case of their own: each
+    reads its first axis (d for w_q, w_dkv, w_krope; the rank for w_uk
+    and w_uv), and w_o is (nq, v_hd, d)."""
     name = _leaf_name(path)
     if name == "embedding":
         return shape[1]

@@ -247,6 +247,24 @@ class ModelConfig:
         return int(total)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode
+    seq: int
+    batch: int
+    long_context: bool = False
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k":  ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k":   ShapeSpec("long_500k", "decode", 524288, 1,
+                             long_context=True),
+}
+
+
 # ----------------------------------------------------------------------
 # Registry
 # ----------------------------------------------------------------------
@@ -270,6 +288,23 @@ def get_config(name: str) -> ModelConfig:
 def list_configs():
     from repro_torch import configs as _c  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def for_shape(cfg: ModelConfig, shape: ShapeSpec) -> ModelConfig:
+    """Adapt a config to an input shape (sliding-window for long decode)."""
+    if shape.long_context and cfg.family in ("dense", "moe") \
+            and cfg.attention == "full":
+        return dataclasses.replace(cfg, attention="sliding",
+                                   sliding_window=8192)
+    return cfg
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a supported dry-run combination."""
+    if shape.kind == "decode" and cfg.n_encoder_layers and shape.long_context:
+        return False, ("enc-dec translation decoder has no 500k-token decode "
+                       "regime (DESIGN.md long_500k policy)")
+    return True, ""
 
 
 # ----------------------------------------------------------------------

@@ -39,6 +39,12 @@ which the next admission overwrites.  Stateful models serve lockstep
 only: the optimistic continuation and per-slot verdicts of pipelined
 serving need positional caches.
 
+A sliding-window model's attention cache is a ring of W slots, and a ring
+that has wrapped cannot take back a rejected draft (its write overwrote a
+key still inside the window; ``models.attention``).  Both actors refuse a
+cache capacity past W (``WindowWrapError``) before any round, in
+fixed-batch and slot mode alike.
+
 Randomness comes only from per-row threefry keys (``repro_torch.prng``),
 which give jax's bits: the token streams equal the reference's.
 """
@@ -61,7 +67,8 @@ from repro_torch.core import verify as verify_mod
 from repro_torch.core import wire as wire_mod
 from repro_torch.core.pages import PageAllocator
 from repro_torch.models import model as model_mod
-from repro_torch.models.attention import PagedSpec, sanitize_page_table
+from repro_torch.models.attention import (PagedSpec, sanitize_page_table,
+                                          window)
 from repro_torch.models.transformer import SEQ_BLOCKS
 
 
@@ -118,6 +125,21 @@ def _set(t, slot: int, value):
 class StatefulModelError(ValueError):
     """A path that needs positional (KV) caches was asked to run a model
     with sequential state."""
+
+
+class WindowWrapError(ValueError):
+    """A sliding-window model was asked to serve with a cache capacity
+    past its window: the ring would wrap, and a wrapped ring gives wrong
+    logits after a rejected draft."""
+
+
+def check_window(cfg: ModelConfig, cache_len: int):
+    """Refuse speculative rounds on a ring that can wrap."""
+    W = window(cfg)
+    if W and cache_len > W:
+        raise WindowWrapError(
+            f"{cfg.name}: cache capacity {cache_len} exceeds the sliding "
+            f"window {W}; a wrapped ring cannot roll back rejected drafts")
 
 
 def is_stateful(cfg: ModelConfig) -> bool:
@@ -324,12 +346,14 @@ class EdgeDraftEngine:
 
     def init_slots(self, n_slots: int, cache_len: int,
                    spec: Optional[PagedSpec]):
+        check_window(self.dc, cache_len)
         self._alloc_state(n_slots)
         self.cache_len = cache_len
         self.dcache = model_mod.init_cache(self.model, n_slots, cache_len,
                                            paged=spec)
 
     def prefill_batch(self, prompts, cache_len: int):
+        check_window(self.dc, cache_len)
         B, S0 = prompts.shape
         self._alloc_state(B)
         self.cache_len = cache_len
@@ -346,8 +370,8 @@ class EdgeDraftEngine:
         S0 = int(prompt.shape[0])
         _, cache1 = model_mod.prefill(self.model, prompt[None, :-1],
                                       cache_len=self.cache_len)
-        model_mod.write_prefill_to_slot(self.dcache, cache1, slot, pt_row,
-                                        S0 - 1)
+        model_mod.write_prefill_to_slot(self.dc, self.dcache, cache1, slot,
+                                        pt_row, S0 - 1)
         key = row_key(seed, 0, self.device)
         self.x_last = _set(self.x_last, slot, prompt[-1])
         self.pos = _set(self.pos, slot, S0 - 1)
@@ -595,12 +619,14 @@ class CloudVerifyEngine:
 
     def init_slots(self, n_slots: int, cache_len: int,
                    spec: Optional[PagedSpec]):
+        check_window(self.tc, cache_len)
         self._alloc_state(n_slots)
         self.cache_len = cache_len
         self.tcache = model_mod.init_cache(self.model, n_slots, cache_len,
                                            paged=spec)
 
     def prefill_batch(self, prompts, cache_len: int):
+        check_window(self.tc, cache_len)
         B, S0 = prompts.shape
         self._alloc_state(B)
         self.cache_len = cache_len
@@ -616,8 +642,8 @@ class CloudVerifyEngine:
         S0 = int(prompt.shape[0])
         _, cache1 = model_mod.prefill(self.model, prompt[None, :-1],
                                       cache_len=self.cache_len)
-        model_mod.write_prefill_to_slot(self.tcache, cache1, slot, pt_row,
-                                        S0 - 1)
+        model_mod.write_prefill_to_slot(self.tc, self.tcache, cache1, slot,
+                                        pt_row, S0 - 1)
         self.slot_codec[slot] = wire_codec or self.fmt.codec
         key = cloud_row_key(seed, 0, self.device)
         self.x_last = _set(self.x_last, slot, prompt[-1])

@@ -1,11 +1,14 @@
-"""GQA attention: prefill over the prompt and extend over a KV cache
-(mirrors ``repro.models.attention`` for full attention; the
-sliding-window and MLA variants come in later slices).
+"""Attention: GQA (full or sliding-window) and MLA (DeepSeek-V2), prefill
+over the prompt and extend over a cache (mirrors
+``repro.models.attention``; cross-attention comes with the enc-dec
+family).
 
 KV caches come in two layouts, each in the compute dtype or in int8 with
 per-(position, head) f32 scale tables:
 
-  dense   (B, Sc, nkv, hd) per slot;
+  dense   (B, Sc, nkv, hd) per slot; a sliding-window layer's is a ring
+          of Sc = min(capacity, W) slots, position p at slot p % Sc, keys
+          roped when written;
   paged   a pool of (n_pages + 1, page_size, nkv, hd) pages shared by
           every slot, addressed through a per-slot page table
           (``core.pages.PageAllocator``).  ``attn_extend`` takes the
@@ -18,6 +21,21 @@ per-(position, head) f32 scale tables:
 
 int8 caches are dequantized in bf16 before ``_extend_core``
 (``int8 -> bf16`` times ``scale -> bf16``), as the reference does.
+
+An MLA layer caches the latent (B, Sc, kv_lora_rank) and the shared
+roped key (B, Sc, rope_head_dim) in the compute dtype (also when
+``kv_cache_dtype`` is int8, as the reference does), written in place and
+rolled back by position like KV.  Prefill and training expand the latent
+to per-head keys and values (``mla_full``); decode and verify attend in
+latent space with W_uk absorbed into the query (``mla_extend``).
+
+A sliding-window ring cannot survive a speculative rollback once it has
+wrapped: the rejected drafts of a round overwrite the keys of positions
+W back, which later queries still see, and ``_extend_core`` labels each
+slot by the newest position, so the overwritten keys pass the window mask
+as the old ones.  The model mirrors the reference's ring as it is; the
+engine refuses speculative rounds on a ring that can wrap
+(``core.engine.WindowWrapError``).
 
 The extend math ``_extend_core`` contracts bf16 operands with float32
 accumulation and keeps float32 scores, as the reference's
@@ -73,6 +91,18 @@ def paged_eligible(cfg: ModelConfig) -> bool:
     return cfg.attention == "full" and not cfg.is_mla
 
 
+def window(cfg: ModelConfig) -> int:
+    """The attention window W, 0 for full attention."""
+    return cfg.sliding_window if cfg.attention == "sliding" else 0
+
+
+def cache_capacity(cfg: ModelConfig, seq: int) -> int:
+    """Positions a GQA cache of ``seq`` positions holds: a sliding
+    window's ring is at most W slots."""
+    W = window(cfg)
+    return min(seq, W) if W else seq
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -88,6 +118,24 @@ class Attention(nn.Module):
             self.b_v = param(nkv, hd, dtype=dtype, device=device, fill=0.0)
         else:
             self.b_q = self.b_k = self.b_v = None
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention's leaves, under the reference's names:
+    the query (d, nq, hd + rhd), the latent and shared rope-key
+    down-projections, the latent's key and value up-projections and the
+    output (nq, v_hd, d)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, hd, nq = cfg.d_model, cfg.head_dim, cfg.n_heads
+        rhd, rank, vhd = cfg.rope_head_dim, cfg.kv_lora_rank, cfg.v_hd
+        self.w_q = param(d, nq, hd + rhd, dtype=dtype, device=device)
+        self.w_dkv = param(d, rank, dtype=dtype, device=device)
+        self.w_krope = param(d, rhd, dtype=dtype, device=device)
+        self.w_uk = param(rank, nq, hd, dtype=dtype, device=device)
+        self.w_uv = param(rank, nq, vhd, dtype=dtype, device=device)
+        self.w_o = param(nq, vhd, d, dtype=dtype, device=device)
 
 
 def _proj(x, w):
@@ -132,24 +180,33 @@ def _pick_chunk(S: int, target: int = 512) -> int:
     return max(c, 1)
 
 
-def _attend_chunk(qc, qp, kf, vf, k_pos, scale, causal: bool):
+def _attend_chunk(qc, qp, kf, vf, k_pos, scale, causal: bool, window: int,
+                  k_valid):
     """One query chunk qc (B, C, nkv, qpk, hd) at positions qp (B, C)
-    against the whole float32 K/V."""
+    against the whole float32 K/V: causal, within ``window`` positions
+    back (0: unbounded), and only keys where ``k_valid`` (B, Sk)."""
     s = torch.einsum("bckgh,bskh->bkgcs", qc.float() * scale, kf)
+    mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=s.device)
     if causal:
-        rel = qp[:, None, None, :, None] >= k_pos[:, None, None, None, :]
-        s = torch.where(rel, s, NEG_INF)
-    p = softmax(s)
+        mask = mask & (qp[:, None, None, :, None]
+                       >= k_pos[:, None, None, None, :])
+    if window:
+        mask = mask & ((qp[:, None, None, :, None]
+                        - k_pos[:, None, None, None, :]) < window)
+    if k_valid is not None:
+        mask = mask & k_valid[:, None, None, None, :]
+    p = softmax(torch.where(mask, s, NEG_INF))
     return torch.einsum("bkgcs,bskh->bckgh", p, vf).to(qc.dtype)
 
 
-def masked_attention(q, k, v, q_pos, k_pos, causal: bool):
-    """q: (B, S, nq, hd), k/v: (B, Sk, nkv, hd), absolute positions
-    (B, S) / (B, Sk).  Query-chunked so no (S, S) score tensor is built
-    at once; with gradients on, each chunk is checkpointed.  Returns
-    (B, S, nq, hd)."""
+def masked_attention(q, k, v, q_pos, k_pos, causal: bool, window: int = 0,
+                     k_valid=None):
+    """q: (B, S, nq, hd), k: (B, Sk, nkv, hd), v: (B, Sk, nkv, hdv),
+    absolute positions (B, S) / (B, Sk).  Query-chunked so no (S, S)
+    score tensor is built at once; with gradients on, each chunk is
+    checkpointed.  Returns (B, S, nq, hdv)."""
     B, S, nq, hd = q.shape
-    nkv = k.shape[2]
+    nkv, hdv = v.shape[2], v.shape[3]
     qpk = nq // nkv
     scale = _inv_sqrt(hd, q.device)
     qg = q.reshape(B, S, nkv, qpk, hd)
@@ -158,13 +215,13 @@ def masked_attention(q, k, v, q_pos, k_pos, causal: bool):
     outs = []
     for c0 in range(0, S, C):
         args = (qg[:, c0:c0 + C], q_pos[:, c0:c0 + C], kf, vf, k_pos, scale,
-                causal)
+                causal, window, k_valid)
         if torch.is_grad_enabled():
             outs.append(checkpoint(_attend_chunk, *args,
                                    use_reentrant=False))
         else:
             outs.append(_attend_chunk(*args))
-    return torch.cat(outs, 1).reshape(B, S, nq, hd)
+    return torch.cat(outs, 1).reshape(B, S, nq, hdv)
 
 
 # ----------------------------------------------------------------------
@@ -175,8 +232,15 @@ def _int8(cfg: ModelConfig) -> bool:
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device):
-    """One layer's dense cache, zero-filled."""
-    shp = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    """One layer's dense cache, zero-filled: a sliding-window layer's ring
+    holds min(seq, W) slots; an MLA layer's latent and rope key stay in
+    the compute dtype (and at ``seq`` positions), as the reference's."""
+    if cfg.is_mla:
+        return {"latent": torch.zeros((batch, seq, cfg.kv_lora_rank),
+                                      dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, seq, cfg.rope_head_dim),
+                                      dtype=dtype, device=device)}
+    shp = (batch, cache_capacity(cfg, seq), cfg.n_kv_heads, cfg.head_dim)
     if _int8(cfg):
         return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
                 "v": torch.zeros(shp, dtype=torch.int8, device=device),
@@ -264,17 +328,32 @@ def prefill_into_pages(paged, dense_kv, pt_row, length: int):
 # Forward
 # ----------------------------------------------------------------------
 def attn_full(cfg: ModelConfig, p: Attention, x, positions):
-    """Train path: the full sequence, causal, no cache returned."""
+    """Train path: the full sequence, causal (and windowed), no cache
+    returned."""
     q, k, v = _qkv(cfg, p, x, positions)
-    o = masked_attention(q, k, v, positions, positions, causal=True)
+    o = masked_attention(q, k, v, positions, positions, causal=True,
+                         window=window(cfg))
     return _out(o, p.w_o)
 
 
 def attn_prefill(cfg: ModelConfig, p: Attention, x, positions):
-    """Causal attention over the prompt; returns (out, cache leaves):
-    {"k", "v"}, or int8 {"k", "v", "k_scale", "v_scale"}."""
+    """Causal (and windowed) attention over the prompt; returns (out, cache
+    leaves): {"k", "v"}, or int8 {"k", "v", "k_scale", "v_scale"}.  A
+    prompt longer than the window W leaves the ring of its last W roped
+    keys, position p at slot p % W."""
     q, k, v = _qkv(cfg, p, x, positions)
-    o = masked_attention(q, k, v, positions, positions, causal=True)
+    W = window(cfg)
+    o = masked_attention(q, k, v, positions, positions, causal=True,
+                         window=W)
+    B, S = x.shape[:2]
+    if W and S > W:
+        slots = positions[:, -W:] % W
+        bidx = torch.arange(B, device=x.device)[:, None]
+        ring_k, ring_v = torch.zeros_like(k[:, -W:]), torch.zeros_like(
+            v[:, -W:])
+        ring_k[bidx, slots] = k[:, -W:]
+        ring_v[bidx, slots] = v[:, -W:]
+        k, v = ring_k, ring_v
     if _int8(cfg):
         k8, ks = _quantize_heads(k)
         v8, vs = _quantize_heads(v)
@@ -308,11 +387,14 @@ def _cache_bmm(a, c, transpose: bool):
     return torch.stack(parts, 1)
 
 
-def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, dt):
+def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, W: int,
+                 dt):
     """L queries against the whole (gathered) cache ``ck``/``cv``
-    (B, Sc, nkv, hd), causally masked by absolute position.  Both cache
-    layouts run this one function, which is what makes paged and dense
-    serving bit-identical."""
+    (B, Sc, nkv, hd), causally masked by absolute position.  With a window
+    W the cache is a ring: each slot is labelled with the latest position
+    the newest query's ring puts there, and keys more than W back or never
+    written are masked too.  Both cache layouts run this one function,
+    which is what makes paged and dense serving bit-identical."""
     B, L = abs_new.shape
     Sc = ck.shape[1]
     nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -324,9 +406,17 @@ def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, dt):
         s = _cache_bmm(a, ck, transpose=True).view(B, nkv, qpk, L, Sc)
     else:
         s = torch.einsum("blkgh,bskh->bkgls", qs.float(), ck.float())
-    kpos = torch.arange(Sc, device=ck.device)
-    valid = kpos[None, None, None, None, :] <= \
-        abs_new[:, None, None, :, None]
+    slot = torch.arange(Sc, device=ck.device)[None, :]        # (1, Sc)
+    if W:
+        last = abs_new[:, -1:]
+        slot_abs = last - (last - slot) % Sc                  # (B, Sc)
+    else:
+        slot_abs = slot
+    qpos = abs_new[:, None, None, :, None]                    # (B,1,1,L,1)
+    kpos = slot_abs[:, None, None, None, :]                   # (·,1,1,1,Sc)
+    valid = kpos <= qpos
+    if W:
+        valid = valid & (kpos > qpos - W) & (kpos >= 0)
     s = torch.where(valid, s, NEG_INF)
     prob = softmax(s).to(cv.dtype)
     if cv.is_cuda:
@@ -343,28 +433,31 @@ def attn_extend(cfg: ModelConfig, p: Attention, x, positions, cache, pos):
     other; ``pos`` (B,) is the absolute index of the first new token.
     Writes the new K/V into ``cache`` IN PLACE (the reference returns an
     updated copy; rows replaying their last step rewrite the same values,
-    so nothing a row later reads changes).  A cache dict carrying a
+    so nothing a row later reads changes); a sliding-window layer writes
+    position p at ring slot p % Sc.  A cache dict carrying a
     ``page_table`` leaf takes the paged path."""
     if "page_table" in cache:
         return _attn_extend_paged(cfg, p, x, positions, cache, pos)
     q, k, v = _qkv(cfg, p, x, positions)
     B, L = x.shape[:2]
+    W = window(cfg)
     abs_new = pos[:, None] + torch.arange(L, device=x.device)[None, :]
+    slot = abs_new % cache["k"].shape[1] if W else abs_new
     bidx = torch.arange(B, device=x.device)[:, None]
     if "k_scale" in cache:
         k8, ks = _quantize_heads(k)
         v8, vs = _quantize_heads(v)
-        cache["k"][bidx, abs_new] = k8
-        cache["v"][bidx, abs_new] = v8
-        cache["k_scale"][bidx, abs_new] = ks
-        cache["v_scale"][bidx, abs_new] = vs
+        cache["k"][bidx, slot] = k8
+        cache["v"][bidx, slot] = v8
+        cache["k_scale"][bidx, slot] = ks
+        cache["v_scale"][bidx, slot] = vs
         ck = _dequantize(cache["k"], cache["k_scale"])
         cv = _dequantize(cache["v"], cache["v_scale"])
     else:
-        cache["k"][bidx, abs_new] = k.to(cache["k"].dtype)
-        cache["v"][bidx, abs_new] = v.to(cache["v"].dtype)
+        cache["k"][bidx, slot] = k.to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v.to(cache["v"].dtype)
         ck, cv = cache["k"], cache["v"]
-    return _extend_core(cfg, p, q, ck, cv, abs_new, x.dtype), cache
+    return _extend_core(cfg, p, q, ck, cv, abs_new, W, x.dtype), cache
 
 
 def _attn_extend_paged(cfg: ModelConfig, p: Attention, x, positions, cache,
@@ -392,4 +485,84 @@ def _attn_extend_paged(cfg: ModelConfig, p: Attention, x, positions, cache,
         page_scatter(cache["k"], k, pt, abs_new)
         page_scatter(cache["v"], v, pt, abs_new)
         ck, cv = page_gather(cache["k"], pt), page_gather(cache["v"], pt)
-    return _extend_core(cfg, p, q, ck, cv, abs_new, x.dtype), cache
+    return _extend_core(cfg, p, q, ck, cv, abs_new, 0, x.dtype), cache
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ----------------------------------------------------------------------
+def _mla_q(cfg, p: MLA, x, positions):
+    q = _proj(x, p.w_q)
+    return q[..., :cfg.head_dim], rope_apply_by_cfg(
+        cfg, q[..., cfg.head_dim:], positions)
+
+
+def _mla_latent(cfg, p: MLA, x, positions):
+    latent = x @ p.w_dkv.to(x.dtype)                          # (B, S, rank)
+    k_rope = (x @ p.w_krope.to(x.dtype))[:, :, None, :]       # (B, S, 1, rhd)
+    return latent, rope_apply_by_cfg(cfg, k_rope, positions)[:, :, 0]
+
+
+def mla_full(cfg: ModelConfig, p: MLA, x, positions,
+             return_cache: bool = False):
+    """Train / prefill: the latent expanded to per-head keys and values,
+    the shared rope key broadcast over the heads, causal attention over
+    the sequence; with ``return_cache`` also the cache leaves
+    {"latent", "k_rope"}."""
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    latent, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = _proj(latent, p.w_uk)
+    v = _proj(latent, p.w_uv)
+    k_rope_b = k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope_b], -1)
+    out = _out(masked_attention(q, k, v, positions, positions, causal=True),
+               p.w_o)
+    if return_cache:
+        return out, {"latent": latent, "k_rope": k_rope}
+    return out
+
+
+def _latent_bmm(a, c, transpose: bool):
+    """a (B, R, n) @ c^T (B, n, Sc) when ``transpose``, else a (B, R, Sc)
+    @ c (B, Sc, n), float32 out, against a one-head cache c (B, Sc, n):
+    on the card read in place by ``_cache_bmm``, on the CPU widened to
+    float32 first (as ``_extend_core``)."""
+    if c.is_cuda:
+        return _cache_bmm(a[:, None], c[:, :, None], transpose)[:, 0]
+    return a.float() @ (c.transpose(1, 2) if transpose else c).float()
+
+
+def mla_extend(cfg: ModelConfig, p: MLA, x, positions, cache, pos):
+    """Absorbed MLA extend (decode L = 1, verify L > 1): W_uk folded into
+    the query and W_uv applied after the context, so scores and context
+    live in latent space.  Writes the L new latents and rope keys into
+    ``cache`` IN PLACE.  The precisions are the reference's: the absorbed
+    query in float32 then cast to the cache dtype, both score products
+    cache-dtype operands into float32, the context float32 from
+    cache-dtype probabilities, W_uv in float32."""
+    dt = x.dtype
+    B, L = x.shape[:2]
+    nq, rank = cfg.n_heads, cfg.kv_lora_rank
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)            # (B, L, nq, ·)
+    latent_t, k_rope_t = _mla_latent(cfg, p, x, positions)
+    abs_new = pos[:, None] + torch.arange(L, device=x.device)[None, :]
+    bidx = torch.arange(B, device=x.device)[:, None]
+    clat, crope = cache["latent"], cache["k_rope"]
+    clat[bidx, abs_new] = latent_t.to(clat.dtype)
+    crope[bidx, abs_new] = k_rope_t.to(crope.dtype)
+    scale = _inv_sqrt(cfg.head_dim + cfg.rope_head_dim, x.device)
+    q_lat = torch.einsum("blnh,rnh->blnr", q_nope.float(), p.w_uk.float())
+    s = _latent_bmm(q_lat.to(clat.dtype).reshape(B, L * nq, rank), clat,
+                    transpose=True)
+    s = s + _latent_bmm(q_rope.to(crope.dtype).reshape(B, L * nq, -1),
+                        crope, transpose=True)
+    Sc = clat.shape[1]
+    s = (s * scale).view(B, L, nq, Sc)
+    valid = torch.arange(Sc, device=x.device)[None, None, None, :] <= \
+        abs_new[:, :, None, None]                             # (B, L, 1, Sc)
+    prob = softmax(torch.where(valid, s, NEG_INF)).to(clat.dtype)
+    ctx = _latent_bmm(prob.reshape(B, L * nq, Sc), clat, transpose=False)
+    o = torch.einsum("blnr,rnh->blnh", ctx.view(B, L, nq, rank),
+                     p.w_uv.float())
+    return _out(o.to(dt), p.w_o), cache

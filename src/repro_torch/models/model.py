@@ -13,13 +13,18 @@
     decode_step(model, token, cache, pos)          -> (logits (B,V), cache)
     init_cache(model, batch, seq, paged=None)      -> empty serving cache
     set_page_tables(cache, pt)                     -> cache, tables refreshed
-    write_prefill_to_slot(big, small, slot, ...)   -> prompt into one slot
+    write_prefill_to_slot(cfg, big, small, slot,
+                          ...)                     -> prompt into one slot
 
-A cache is a list with one dict per layer, of the layer's kind.  An
-attention layer holds dense {"k", "v"} of (B, cache_len, nkv, hd)
-tensors, plus f32 "k_scale"/"v_scale" (B, cache_len, nkv) when
-``cfg.kv_cache_dtype == "int8"``; a paged attention layer holds pools
-(n_pages + 1, page_size, ...) of the same leaves and its slots'
+The layers are the dense prefix layers, then the body
+(``transformer.layer_kinds``).  A cache is a list with one dict per
+layer, of the layer's kind.  An attention layer holds dense {"k", "v"}
+of (B, Sc, nkv, hd) tensors, plus f32 "k_scale"/"v_scale" (B, Sc, nkv)
+when ``cfg.kv_cache_dtype == "int8"``, Sc the capacity
+(``attention.cache_capacity``: min(cache_len, W) for a sliding window,
+whose cache is a ring); an MLA layer holds {"latent" (B, cache_len,
+rank), "k_rope" (B, cache_len, rhd)}; a paged attention layer holds
+pools (n_pages + 1, page_size, ...) of the KV leaves and its slots'
 "page_table" (B, max_pages).  A stateful layer (Mamba, mLSTM, sLSTM)
 holds its recurrent state, (B, ...) leaves of ``ssm.make_state``.
 ``extend_step`` writes KV into the cache in place, dispatching on
@@ -50,8 +55,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (compute_dtype, embed_apply,
                                        lm_head_apply, param, rmsnorm)
-from repro_torch.models.transformer import apply_train, check_supported, \
-    make_layers
+from repro_torch.models.transformer import (SEQ_BLOCKS, apply_train,
+                                           check_supported, layer_kinds,
+                                           make_layers)
 
 
 class Transformer(nn.Module):
@@ -128,11 +134,13 @@ def forward_logits(model: Transformer, tokens):
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens, cache_len: Optional[int] = None):
-    """Run the prompt (B, S) and build the decode cache: attention KV
-    padded with zeros out to ``cache_len`` positions, stateful layers'
-    state after the prompt.  Returns (last_logits (B, V), cache)."""
+    """Run the prompt (B, S) and build the decode cache: attention caches
+    padded with zeros out to ``attention.cache_capacity(cfg, cache_len)``
+    positions (a sliding window's wrapped ring is already full), stateful
+    layers' state after the prompt.  Returns (last_logits (B, V),
+    cache)."""
     B, S = tokens.shape
-    cache_len = cache_len or S
+    cap = attn_mod.cache_capacity(model.cfg, cache_len or S)
     positions = _positions(B, S, 0, tokens.device)
     x = embed_apply(model.embedding, tokens, model.dtype)
     cache = []
@@ -141,10 +149,12 @@ def prefill(model: Transformer, tokens, cache_len: Optional[int] = None):
         if not blk.stateful:
             grown = {}
             for name, t in c.items():
-                full = torch.zeros((B, cache_len) + t.shape[2:],
-                                   dtype=t.dtype, device=t.device)
-                full[:, :S] = t
-                grown[name] = full
+                if t.shape[1] < cap:
+                    full = torch.zeros((B, cap) + t.shape[2:],
+                                       dtype=t.dtype, device=t.device)
+                    full[:, :t.shape[1]] = t
+                    t = full
+                grown[name] = t
             c = grown
         cache.append(c)
     return model.head(x[:, -1:])[:, 0], cache
@@ -174,15 +184,18 @@ def extend_step(model: Transformer, tokens, cache, pos,
 def init_cache(model: Transformer, batch: int, seq: int,
                paged: Optional[attn_mod.PagedSpec] = None):
     """Empty serving cache: dense KV for attention layers, zero states for
-    stateful ones.  ``paged``: every attention layer gets a shared page
-    pool + per-slot page table instead of dense (B, seq, ...) KV."""
+    stateful ones.  ``paged``: every eligible body attention layer (full
+    GQA, ``attention.paged_eligible``) gets a shared page pool + per-slot
+    page table instead of dense (B, seq, ...) KV; prefix layers, MLA and
+    sliding-window layers stay dense, as the reference's."""
     cfg, dev = model.cfg, model.device
     cache = []
-    for blk in model.layers:
+    for i, blk in enumerate(model.layers):
         if blk.stateful:
             cache.append(ssm.make_state(cfg, blk.block_type, batch,
                                         model.dtype, dev))
-        elif paged is not None and attn_mod.paged_eligible(cfg):
+        elif paged is not None and i >= cfg.n_prefix_layers and \
+                attn_mod.paged_eligible(cfg):
             cache.append(attn_mod.make_paged_kv_cache(cfg, batch, paged,
                                                       model.dtype, dev))
         else:
@@ -202,18 +215,19 @@ def set_page_tables(cache, pt):
 
 
 @torch.no_grad()
-def write_prefill_to_slot(big, small, slot: int, pt_row=None,
-                          length: int = 0):
+def write_prefill_to_slot(cfg: ModelConfig, big, small, slot: int,
+                          pt_row=None, length: int = 0):
     """Scatter a batch-1 prefill cache ``small`` into the multi-slot
-    cache ``big``: dense KV layers into batch row ``slot`` IN PLACE (the
-    whole row, as the reference's dynamic_update_slice), paged layers
-    the prompt's first ``length`` positions through ``pt_row``, and a
-    stateful layer's state into row ``slot`` of new tensors (state
-    tensors are never written in place)."""
-    for b, s in zip(big, small):
+    cache ``big``, by each layer's kind: a dense attention layer (KV or
+    MLA latent) into batch row ``slot`` IN PLACE (the whole row, as the
+    reference's dynamic_update_slice), a paged layer the prompt's first
+    ``length`` positions through ``pt_row``, and a stateful layer's state
+    into row ``slot`` of new tensors (state tensors are never written in
+    place)."""
+    for (block, _), b, s in zip(layer_kinds(cfg), big, small):
         if "page_table" in b:
             attn_mod.prefill_into_pages(b, s, pt_row, length)
-        elif "k" in b:
+        elif block not in SEQ_BLOCKS:
             for name, t in s.items():
                 b[name][slot] = t[0].to(b[name].dtype)
         else:

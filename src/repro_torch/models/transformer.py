@@ -1,16 +1,18 @@
 """Block composition and the layer stack (mirrors
-``repro.models.transformer``).  Layer i is the block
-``(cfg.block_pattern[i % P], cfg.ffn_pattern[i % P])`` of the period P:
-a sequence mixer (GQA attention, Mamba, mLSTM or sLSTM) and a channel
-mixer (SwiGLU MLP, mixture of experts, or none: xLSTM's blocks carry
-their own projections and have no second norm).  The reference scans
+``repro.models.transformer``).  The first ``cfg.n_prefix_layers`` layers
+are dense blocks ``("attn", "mlp")`` (DeepSeek-V2's first layer); body
+layer i >= n_prefix is the block ``(cfg.block_pattern[j % P],
+cfg.ffn_pattern[j % P])`` of the period P, j = i - n_prefix: a sequence
+mixer (GQA or MLA attention, Mamba, mLSTM or sLSTM) and a channel mixer
+(SwiGLU MLP, mixture of experts, or none: xLSTM's blocks carry their own
+projections and have no second norm).  The reference scans
 period-stacked parameters with ``jax.lax.scan``; the port keeps one
 module per layer in an ``nn.ModuleList`` and loops in Python; in training
 (``apply_train``) each layer is checkpointed, as the reference
 checkpoints each scanned period.
 
-An attention layer's cache is its KV cache, written in place by
-``extend``; a stateful layer's cache is its recurrent state, which
+An attention layer's cache is its KV (or MLA latent) cache, written in
+place by ``extend``; a stateful layer's cache is its recurrent state, which
 ``prefill`` and ``extend`` return as new tensors (with ``collect_traj``,
 also the state after every position, for speculative-decoding
 rollback)."""
@@ -39,8 +41,10 @@ class Block(nn.Module):
         self.stateful = block_type in SEQ_BLOCKS
         # norm weights stay float32: the reference reads them as float32
         self.norm1 = param(d, dtype=torch.float32, device=device, fill=1.0)
-        mixer = attn.Attention if block_type == "attn" else \
-            ssm.MIXERS[block_type]
+        if block_type == "attn":
+            mixer = attn.MLA if cfg.is_mla else attn.Attention
+        else:
+            mixer = ssm.MIXERS[block_type]
         # under the reference's name: attn | mamba | mlstm | slstm
         self.add_module(block_type, mixer(cfg, dtype, device))
         self.norm2 = None if ffn_type == "none" else \
@@ -60,6 +64,8 @@ class Block(nn.Module):
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
         if self.stateful:
             a = ssm.train_seq(self.cfg, self.block_type, self.mixer, h)
+        elif self.cfg.is_mla:
+            a = attn.mla_full(self.cfg, self.attn, h, positions)
         else:
             a = attn.attn_full(self.cfg, self.attn, h, positions)
         x = x + a
@@ -71,11 +77,14 @@ class Block(nn.Module):
         return x + y.reshape(B, S, D), aux
 
     def prefill(self, x, positions):
-        """Returns (x, cache leaves): the prompt's {"k", "v"}, or the
-        recurrent state after the prompt."""
+        """Returns (x, cache leaves): the prompt's {"k", "v"} (MLA:
+        {"latent", "k_rope"}), or the recurrent state after the prompt."""
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
         if self.stateful:
             a, c, _ = ssm.seq(self.cfg, self.block_type, self.mixer, h)
+        elif self.cfg.is_mla:
+            a, c = attn.mla_full(self.cfg, self.attn, h, positions,
+                                 return_cache=True)
         else:
             a, c = attn.attn_prefill(self.cfg, self.attn, h, positions)
         return self._ffn(x + a), c
@@ -90,6 +99,9 @@ class Block(nn.Module):
         if self.stateful:
             a, state, traj = ssm.seq(self.cfg, self.block_type, self.mixer,
                                      h, cache, collect_traj)
+        elif self.cfg.is_mla:
+            a, _ = attn.mla_extend(self.cfg, self.attn, h, positions, cache,
+                                   pos)
         else:
             a, _ = attn.attn_extend(self.cfg, self.attn, h, positions, cache,
                                     pos)
@@ -102,11 +114,18 @@ class Block(nn.Module):
         return x + ffn(rmsnorm(x, self.norm2, self.cfg.rms_eps))
 
 
+def layer_kinds(cfg: ModelConfig):
+    """(block type, ffn type) of every layer: the dense prefix, then the
+    body's period pattern from its own layer 0."""
+    P, n = cfg.period, cfg.n_prefix_layers
+    return [("attn", "mlp")] * n + [
+        (cfg.block_pattern[(i - n) % P], cfg.ffn_pattern[(i - n) % P])
+        for i in range(n, cfg.n_layers)]
+
+
 def make_layers(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
-    P = cfg.period
-    return nn.ModuleList(
-        Block(cfg, cfg.block_pattern[i % P], cfg.ffn_pattern[i % P], dtype,
-              device) for i in range(cfg.n_layers))
+    return nn.ModuleList(Block(cfg, b, f, dtype, device)
+                         for b, f in layer_kinds(cfg))
 
 
 def apply_train(layers, x, positions, remat: bool = True,
@@ -126,17 +145,22 @@ def apply_train(layers, x, positions, remat: bool = True,
 
 
 def check_supported(cfg: ModelConfig):
-    """The port runs GQA attention, Mamba, mLSTM and sLSTM blocks with an
-    MLP, a MoE or no channel mixer, with a KV cache in the compute dtype
-    or in int8; MLA, sliding windows, dense prefix layers, encoders and
-    modality frontends come with later slices."""
+    """The port runs GQA (full or sliding-window) and MLA attention,
+    Mamba, mLSTM and sLSTM blocks with an MLP, a MoE or no channel mixer,
+    after dense prefix layers, with a KV cache in the compute dtype or in
+    int8.  MLA attends over the full context: the reference's MLA ignores
+    a window in its math but sizes the cache by it, so the port refuses
+    the combination.  Encoders and modality frontends come with the
+    enc-dec family."""
     ok = (set(cfg.block_pattern) <= {"attn", *SEQ_BLOCKS}
           and set(cfg.ffn_pattern) <= {"mlp", "moe", "none"}
-          and cfg.n_prefix_layers == 0 and cfg.n_encoder_layers == 0
-          and not cfg.is_mla and cfg.attention == "full"
+          and cfg.n_encoder_layers == 0
+          and cfg.attention in ("full", "sliding")
+          and not (cfg.is_mla and cfg.attention == "sliding")
           and cfg.kv_cache_dtype in ("compute", "int8")
           and cfg.frontend == "none")
     if not ok:
         raise NotImplementedError(
-            f"{cfg.name}: only GQA attention / Mamba / mLSTM / sLSTM blocks "
-            "with an MLP, MoE or no channel mixer are ported so far")
+            f"{cfg.name}: only GQA (full or sliding) / MLA attention, "
+            "Mamba, mLSTM and sLSTM blocks with an MLP, MoE or no channel "
+            "mixer are ported so far")

@@ -72,7 +72,8 @@ def _serve_cache(model, paged: bool, prompts, L: int):
             assert alloc.admit(slot, len(p) - 1)
             pt_row = tattn.sanitize_page_table(alloc.table, N_PAGES,
                                                "cpu")[slot]
-        tmodel.write_prefill_to_slot(cache, small, slot, pt_row, len(p) - 1)
+        tmodel.write_prefill_to_slot(model.cfg, cache, small, slot, pt_row,
+                                     len(p) - 1)
         pos.append(len(p) - 1)
     alloc.release(2)
     for slot in (0, 1):

@@ -131,7 +131,9 @@ def check_engine_matches_reference(arch, method, pins):
     got, got_toks = eng.run(prompts(ttc.vocab), ROUNDS)
     assert got_toks == toks, "token streams diverged"
     np.testing.assert_array_equal(eng.pos.numpy(), pos)
-    fmt = twire.WireFormat(V=ttc.vocab, ell=100, L_max=L_MAX)
+    fmt = twire.WireFormat(V=ttc.vocab, ell=100, L_max=L_MAX,
+                           mode="raw" if method == "uncompressed"
+                           else "lattice")
     ulps = []
     for i, (r, g) in enumerate(zip(rounds, got)):
         for key in ("n_accept", "L_live", "rejected", "wire_bits_row",
