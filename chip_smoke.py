@@ -117,9 +117,34 @@ Phases:
      fixed-batch run and a slot allocation whose ring would wrap, each
      refused with ``WindowWrapError`` and nothing else.
 
+ 14. the encoder-decoder and M-RoPE family, after the MLA models are
+     freed: (a) ``qwen2-vl-72b`` at full width (d 8192, 64/8 heads,
+     d_ff 29568, V 152064, M-RoPE sections (16, 24, 24), qkv biases) cut
+     from 80 to VL_LAYERS layers (33.07 GB bf16; 145.4 GB does not fit)
+     with its full-depth 2x draft (40 layers, 20.3 GB): fixed-batch rounds
+     of all four methods at the phase-3 settings, both SQS kernels against
+     their twins at the draft's next-step logits (Vp 152064), one K-SQS
+     draft call and one verify forward under torch.profiler, a 4-request
+     trace dense lockstep, paged lockstep and paged pipelined with equal
+     streams, and a vision prefill (a 16 x 16 patch grid's M-RoPE ids,
+     then text) followed by decode steps and an extend against the
+     teacher-forced logits at the same positions, in bf16 and, at
+     VL_F32_LAYERS layers, in float32; (b) ``seamless-m4t-large-v2`` (24
+     encoder + 24 decoder layers, V 256206) and its 2x draft at full
+     width and depth over B 4 x 4096 stub audio frames: the encoder
+     prefill timed, the cross cache's bytes a frame, decode steps and an
+     extend against the teacher-forced logits in bf16 and in float32, a
+     decode step's memory rise against a float32 copy of one layer's
+     cross K/V (the cache is read in place), both SQS kernels against
+     their twins at the draft's logits (Vp 256256, 16 blocks a row), and
+     three ``launch.train`` steps of the target with stub frames; (c) the
+     engine's ``EncoderDecoderServingError`` for an encoder-decoder
+     target or draft, in fixed batch and in slots, and ``launch.serve``'s
+     exit 2.
+
 Every phase that drives a path sets the kernels' launch counts to 0
 just before it and reads them just after; the SQS rows of the kernels
-line add the launches of phases 3, 5, 8, 9, 10, 11, 12 and 13.
+line add the launches of phases 3, 5, 8, 9, 10, 11, 12, 13 and 14.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -137,6 +162,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -198,6 +224,13 @@ class CheckFailed(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise CheckFailed(msg)
+
+
+def free_cuda():
+    """Return the memory of freed models to the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, reps=10, warm=2):
@@ -1751,8 +1784,7 @@ def phase_train_steps(dev):
             f"{key[:60]} {t / 1e3:.2f} ms over {cnt} calls"
             for t, cnt, key in sorted(by_op, reverse=True)[:6]))
     del model, params, state, start, batches
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
 
 
 def phase_train_pair(dev, tmp):
@@ -1809,8 +1841,7 @@ def phase_train_pair(dev, tmp):
               f"{save_s:.1f} s")
         paths[role] = path
         del model, state, step
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_cuda()
     return paths
 
 
@@ -1935,8 +1966,9 @@ def fixed_batch_methods(tag, dc, dp, tc, tp, dev, prompts):
     of qs and uncompressed): each kernel launched once a draft step where
     its method runs it, tokens in [0, V), every payload well formed, and
     both sides' next-token logits finite after the run.  Prints t_slm,
-    t_llm and the accepted tokens; returns (engines by method, the SQS
-    launches of the runs)."""
+    t_llm and the accepted tokens; returns (the ksqs and csqs engines by
+    method, the SQS launches of the runs); the others are dropped, their
+    caches freed."""
     import numpy as np
     import torch
     from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
@@ -1989,7 +2021,9 @@ def fixed_batch_methods(tag, dc, dp, tc, tp, dev, prompts):
                              eng.cloud.x_last, eng.cloud.pos)
         check(bool(torch.isfinite(lg).all() and torch.isfinite(lt).all()),
               f"{tag} {method}: NaN/inf logits")
-        engines[method] = eng
+        if method in ("ksqs", "csqs"):
+            engines[method] = eng
+        del eng
     print(f"  peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
           f"allocated over the four methods")
     return engines, launches
@@ -1999,29 +2033,34 @@ def hold_sqs_at_draft_logits(tag, engines):
     """Both SQS kernels against their twins at the draft's next-step
     logits after the ksqs and csqs runs of ``fixed_batch_methods``: no row
     may differ outside the boundary rule."""
-    import torch
-    from repro_torch.kernels import ref, sqs_fused as k
     from repro_torch.kernels.ops import pad_logits
     for method in ("ksqs", "csqs"):
         eng = engines[method]
         lp = pad_logits(stateful_logits(eng.edge.model, eng.edge.dcache,
                                         eng.edge.x_last, eng.edge.pos))[0]
-        if method == "csqs":
-            beta2 = torch.stack([eng.edge.beta, eng.edge.beta], -1) \
-                .contiguous()
-            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
-                                 f"{tag} sqs_fused at the draft's logits")
-        else:
-            tau = k.topk_threshold(lp, 64, inv_temp=1.0)
-            tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), 64)
-            nd, nb = compare_sqs(lp, tau, 1.0, 100, 64,
-                                 f"{tag} sqs_topk at the draft's logits",
-                                 tau_r)
-        check(nb == 0, f"{tag} {method}: {nb} rows differ from the twin "
-              f"outside the boundary rule")
-        print(f"  {method} kernels at the draft's next-step logits (B="
-              f"{lp.shape[0]}, Vp={lp.shape[1]}): {nd} rows differ from the "
-              f"twin, {nb} unexcused")
+        hold_sqs(tag, method, lp, eng.edge.beta)
+
+
+def hold_sqs(tag, method, lp, beta):
+    """One SQS method's kernels against their twins on padded draft logits
+    ``lp`` (B, Vp) (C-SQS at thresholds ``beta`` (B,), K-SQS at K 64): no
+    row may differ outside the boundary rule."""
+    import torch
+    from repro_torch.kernels import ref, sqs_fused as k
+    if method == "csqs":
+        beta2 = torch.stack([beta, beta], -1).contiguous()
+        nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0,
+                             f"{tag} sqs_fused at the draft's logits")
+    else:
+        tau = k.topk_threshold(lp, 64, inv_temp=1.0)
+        tau_r = ref.topk_threshold_ref(ref.softmax_padded(lp, 1.0), 64)
+        nd, nb = compare_sqs(lp, tau, 1.0, 100, 64,
+                             f"{tag} sqs_topk at the draft's logits", tau_r)
+    check(nb == 0, f"{tag} {method}: {nb} rows differ from the twin "
+          f"outside the boundary rule")
+    print(f"  {method} kernels at the draft's next-step logits (B="
+          f"{lp.shape[0]}, Vp={lp.shape[1]}): {nd} rows differ from the "
+          f"twin, {nb} unexcused")
 
 
 def rollback_engine(dc, dp, tc, tp, dev, prompts, l_max, label):
@@ -2213,15 +2252,13 @@ def phase_ssm_full_width(dev, failures):
     profile_stateful_draft(engines["ksqs"])
     hold_sqs_at_draft_logits("ssm", engines)
     del engines
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     print("phase 12 (b): rolled-back target and draft caches against a "
           "fresh prefill of the verified prefix")
     for dtype in (torch.bfloat16, torch.float32):
         if dtype != tp.dtype:
             del tp, dp
-            gc.collect()
-            torch.cuda.empty_cache()
+            free_cuda()
             tp = seeded_model(tc, 1, dev, dtype=dtype)
             dp = seeded_model(dc, 2, dev, dtype=dtype)
         label = f"full width {str(dtype).split('.')[-1]}"
@@ -2409,8 +2446,7 @@ def phase_ssm(dev):
     torch.cuda.reset_peak_memory_stats()
     failures = []
     launches = phase_ssm_full_width(dev, failures)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     phase_ssm_smoke_rollback(dev, failures)
     for name, n in phase_hybrid(dev).items():
         launches[name] += n
@@ -2619,8 +2655,7 @@ def phase_window(dev):
               f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
         if dtype == torch.float32:
             del tp
-            gc.collect()
-            torch.cuda.empty_cache()
+            free_cuda()
     smoke = dataclasses.replace(
         configs.smoke_variant(configs.get_config(WINDOW_ARCH)),
         attention="sliding", sliding_window=8)
@@ -2674,13 +2709,373 @@ def phase_mla_window(dev):
     launches = phase_mla(dev)
     print(f"  phase 13 (a): {time.perf_counter() - t0:.1f} s; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     for name, n in phase_window(dev).items():
         launches[name] += n
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s; peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated; SQS "
           f"launches {launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 14: the encoder-decoder and M-RoPE family
+# ----------------------------------------------------------------------
+VL_ARCH, VL_LAYERS, VL_F32_LAYERS = "qwen2-vl-72b", 16, 4
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# (a) a VL_GRID x VL_GRID patch grid (frontend.vision_patch_positions),
+# then VL_TEXT text positions from VL_GRID on (mrope_text_positions), a
+# batch of VL_BATCH; (a) and (b) then run N_DECODE decode steps and one
+# N_EXTEND-token extend, each step against the teacher-forced logits of
+# the same tokens at the same positions (decoded tokens at t == h == w ==
+# their index, as extend and decode place them)
+VL_BATCH, VL_GRID, VL_TEXT = 2, 16, 16
+N_DECODE, N_EXTEND = 16, 9
+# (b) B ENCDEC_BATCH x ENC_LEN stub frames (launch/dryrun.py's ENC_LEN)
+# and ENCDEC_PROMPT prompt tokens; three launch.train steps at B
+# ENCDEC_TRAIN[0] x S ENCDEC_TRAIN[1]
+ENCDEC_BATCH, ENC_LEN, ENCDEC_PROMPT = 4, 4096, 16
+ENCDEC_TRAIN = (4, 128, 3)
+# cross K/V a frame of one row: 2 x layers x nkv x hd x 2 B (bf16)
+CROSS_BYTES = {"target": 98_304, "draft": 24_576}
+# bounds on max |logit difference| of the serve path against the
+# teacher-forced logits, set before the first card run: bf16 logits near
+# 4-8 have an ulp of 0.03 and 16-24 random layers drift a few ulps, a
+# lost cross cache or a wrong position stream moves them by whole units;
+# in bf16 the argmax must agree wherever the recompute's top-2 gap
+# exceeds the bound, in float32 everywhere
+SERVE_ATOL = {"bfloat16": 0.5, "float32": 1e-3}
+
+
+def serve_vs_teacher(label, model, toks, S_p, positions=None,
+                     enc_embeds=None, measure_rise=False):
+    """Prefill ``toks[:, :S_p]`` (at ``positions[..., :S_p]`` when
+    given), N_DECODE decode steps and one N_EXTEND-token extend, against
+    ``forward_logits`` of all of ``toks`` at ``positions``: max |logit
+    difference| within SERVE_ATOL of the model's dtype, and the argmax
+    equal (in bf16 wherever the recompute's top-2 gap exceeds the bound).
+    With ``measure_rise``, returns the largest rise of
+    ``max_memory_allocated`` over one decode step (which resets the
+    peak)."""
+    import torch
+    from repro_torch.models import model as model_mod
+    B, S = toks.shape
+    check(S == S_p + N_DECODE + N_EXTEND, f"{label}: {S} tokens")
+    dtype = str(model.dtype).split(".")[-1]
+    atol = SERVE_ATOL[dtype]
+    with torch.no_grad():
+        full = model_mod.forward_logits(model, toks, positions=positions,
+                                        enc_embeds=enc_embeds)[:, S_p - 1:]
+    lg, cache = model_mod.prefill(
+        model, toks[:, :S_p], cache_len=S, enc_embeds=enc_embeds,
+        positions=None if positions is None else positions[..., :S_p])
+    got, rise = [lg], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(N_DECODE):
+        pos = torch.full((B,), S_p + t, device=toks.device)
+        if measure_rise:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        lg, cache = model_mod.decode_step(model, toks[:, S_p + t], cache,
+                                          pos)
+        if measure_rise:
+            rise = max(rise, torch.cuda.max_memory_allocated() - base)
+        got.append(lg)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / N_DECODE
+    pos = torch.full((B,), S_p + N_DECODE, device=toks.device)
+    lg, _, _ = model_mod.extend_step(model, toks[:, S_p + N_DECODE:], cache,
+                                     pos)
+    got = torch.cat([torch.stack(got, 1), lg], 1)
+    worst = float((got - full).abs().max())
+    ga, fa = got.argmax(-1), full.argmax(-1)
+    top2 = full.topk(2, -1).values
+    gap = top2[..., 0] - top2[..., 1]
+    n_diff = int((ga != fa).sum())
+    unexcused = int(((ga != fa) & (gap > atol)).sum()) \
+        if dtype == "bfloat16" else n_diff
+    print(f"  {label} ({dtype}): prefill {S_p}, {N_DECODE} decode steps and "
+          f"a {N_EXTEND}-token extend against the teacher-forced logits: max "
+          f"|logit difference| {worst:.3g} (bound {atol}); argmax equal at "
+          f"{ga.numel() - n_diff} of {ga.numel()} positions, "
+          f"{n_diff - unexcused} near ties of the recompute; a decode step "
+          f"{step_ms:.2f} ms of wall")
+    check(worst <= atol, f"{label}: {worst:.3g} > {atol}")
+    check(unexcused == 0, f"{label}: argmax differs at {unexcused} "
+          "positions past the bound's gap")
+    return rise
+
+
+def phase_vl(dev):
+    """(a) qwen2-vl-72b at full width, cut to VL_LAYERS layers, with its
+    full-depth 2x draft: all four methods, the SQS kernels held, one draft
+    call and one verify profiled, a trace dense / paged / pipelined, and
+    the vision prefill in bf16 and at VL_F32_LAYERS layers in float32.
+    Returns the SQS launches of the path."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.models import frontend
+    t0 = time.perf_counter()
+    full = configs.get_config(VL_ARCH)
+    tc = dataclasses.replace(full, name=f"{VL_ARCH}-d{VL_LAYERS}",
+                             n_layers=VL_LAYERS)
+    dc = configs.draft_variant(full, 2)
+    tp = seeded_model(tc, 1, dev)
+    dp = seeded_model(dc, 2, dev)
+    torch.cuda.synchronize()
+    n_t = sum(p.numel() for p in tp.parameters())
+    n_d = sum(p.numel() for p in dp.parameters())
+    print(f"phase 14 (a): {tc.name}: {VL_ARCH} at full width (d "
+          f"{tc.d_model}, {tc.n_heads}/{tc.n_kv_heads} heads of "
+          f"{tc.head_dim}, d_ff {tc.d_ff}, V {tc.vocab}, M-RoPE sections "
+          f"{tc.mrope_sections}, qkv biases) cut from {full.n_layers} to "
+          f"{tc.n_layers} layers ({n_t / 1e9:.3f} B params, "
+          f"{n_t * 2 / 1e9:.2f} GB bf16; the full depth is 145.4 GB) <- "
+          f"{dc.name} at full depth ({dc.n_layers} layers, d {dc.d_model}, "
+          f"{dc.n_heads}/{dc.n_kv_heads} heads; {n_d / 1e9:.3f} B params), "
+          f"{tp.dtype} weights built in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    data = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77))
+    prompts = data.sample(BATCH, PROMPT_LEN)[:, :-1]
+    engines, launches = fixed_batch_methods("vl", dc, dp, tc, tp, dev,
+                                            prompts)
+    eng = engines["ksqs"]
+    profile_draft(eng)
+    profile_verify(eng)
+    hold_sqs_at_draft_logits("vl", engines)
+    del engines, eng
+    # 2-3 new tokens a request: a 40-layer draft call takes ~1 s of host
+    # work on an H100 80GB HBM3, so 4-6 new tokens took 62.8 s (PERF.md)
+    trace = dict(n_requests=4, rate_rps=4.0, prompt_len=PROMPT_LEN,
+                 min_new_tokens=2, max_new_tokens=3, vocab=tc.vocab, seed=5)
+    k.reset_launches()
+    t1 = time.perf_counter()
+    dense = serve_run("vl dense lockstep", dc, dp, tc, tp, dev, trace)
+    paged = serve_run("vl paged(16) lockstep", dc, dp, tc, tp, dev, trace,
+                      page_size=PAGE)
+    pipe = serve_run("vl paged(16) pipelined + speculation", dc, dp, tc, tp,
+                     dev, trace, page_size=PAGE, pipeline="pipelined")
+    check(dense == paged == pipe, "vl: paged or pipelined streams differ "
+          "from dense lockstep")
+    check(k.LAUNCHES["sqs_fused"] > 0, "vl serving never launched sqs_fused")
+    for name, n in k.LAUNCHES.items():
+        launches[name] += n
+    print(f"  vl streams equal across dense lockstep, paged lockstep and "
+          f"paged pipelined: {len(dense)} requests, "
+          f"{sum(map(len, dense.values()))} tokens; serving launches "
+          f"{dict(k.LAUNCHES)}; {time.perf_counter() - t1:.1f} s")
+    del dp
+    free_cuda()
+    n_patch = VL_GRID * VL_GRID
+    S_p = n_patch + VL_TEXT
+    pos3 = torch.cat([
+        frontend.vision_patch_positions(VL_BATCH, n_patch, VL_GRID, VL_GRID,
+                                        device=dev),
+        frontend.mrope_text_positions(VL_BATCH, VL_TEXT, start=VL_GRID,
+                                      device=dev),
+        frontend.mrope_text_positions(VL_BATCH, N_DECODE + N_EXTEND,
+                                      start=S_p, device=dev)], -1)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    toks = torch.randint(0, tc.vocab, (VL_BATCH, pos3.shape[-1]),
+                         generator=gen, device=dev)
+    print(f"  vision prefill: a {VL_GRID} x {VL_GRID} patch grid (t 0, h "
+          f"and w 0..{VL_GRID - 1}) then {VL_TEXT} text positions from "
+          f"{VL_GRID}, B {VL_BATCH}")
+    serve_vs_teacher(f"vl {tc.name}", tp, toks, S_p, positions=pos3)
+    del tp
+    free_cuda()
+    tc32 = dataclasses.replace(tc, name=f"{VL_ARCH}-d{VL_F32_LAYERS}",
+                               n_layers=VL_F32_LAYERS)
+    serve_vs_teacher(f"vl {tc32.name}",
+                     seeded_model(tc32, 1, dev, dtype=torch.float32), toks,
+                     S_p, positions=pos3)
+    return launches
+
+
+def cross_bytes_per_frame(cache):
+    """Bytes of cross K/V a frame of one batch row, over the layers."""
+    return sum(c[n][0, 0].numel() * c[n].element_size()
+               for c in cache for n in ("cross_k", "cross_v"))
+
+
+def phase_encdec(dev):
+    """(b) seamless-m4t-large-v2 and its 2x draft at full width and depth
+    through the model API and training; (c) the refusals."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import seeded_model
+    from repro_torch.core.engine import (EdgeCloudEngine,
+                                         EncoderDecoderServingError,
+                                         EngineConfig, MethodConfig)
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.kernels.ops import pad_logits
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import frontend
+    from repro_torch.models import model as model_mod
+    t0 = time.perf_counter()
+    tc = configs.get_config(ENCDEC_ARCH)
+    dc = configs.draft_variant(tc, 2)
+    tp = seeded_model(tc, 1, dev)
+    dp = seeded_model(dc, 2, dev)
+    torch.cuda.synchronize()
+    n_t = sum(p.numel() for p in tp.parameters())
+    n_d = sum(p.numel() for p in dp.parameters())
+    print(f"phase 14 (b): {tc.name} ({tc.n_encoder_layers} encoder + "
+          f"{tc.n_layers} decoder layers, d {tc.d_model}, {tc.n_heads} "
+          f"heads of {tc.head_dim}, d_ff {tc.d_ff}, V {tc.vocab}; "
+          f"{n_t / 1e9:.3f} B params) <- {dc.name} ({dc.n_encoder_layers} + "
+          f"{dc.n_layers} layers, d {dc.d_model}; {n_d / 1e9:.3f} B params), "
+          f"{tp.dtype} weights built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    # the stub's frames, at each model's width
+    frames = {c.d_model: frontend.audio_frame_embeds(gen, ENCDEC_BATCH,
+                                                     ENC_LEN, c.d_model)
+              for c in (tc, dc)}
+    S = ENCDEC_PROMPT + N_DECODE + N_EXTEND
+    toks = torch.randint(0, tc.vocab, (ENCDEC_BATCH, S), generator=gen,
+                         device=dev)
+    prompt = toks[:, :ENCDEC_PROMPT]
+    for side, model in (("target", tp), ("draft", dp)):
+        ms = []
+        for _ in range(2):                       # the first call warms up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lg, cache = model_mod.prefill(
+                model, prompt, cache_len=S,
+                enc_embeds=frames[model.cfg.d_model])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        per = cross_bytes_per_frame(cache)
+        print(f"  {side}: encoder prefill (B {ENCDEC_BATCH} x {ENC_LEN} "
+              f"frames, {ENCDEC_PROMPT} prompt tokens) {ms[1]:.2f} ms "
+              f"({ms[0]:.2f} ms cold); cross cache {per} B a frame over "
+              f"{len(cache)} layers, {per * ENCDEC_BATCH * ENC_LEN / 1e9:.3f}"
+              f" GB at B {ENCDEC_BATCH}, {cache[0]['cross_k'].dtype}")
+        check(bool(torch.isfinite(lg).all()),
+              f"encdec {side}: prefill logits")
+        check(per == CROSS_BYTES[side], f"encdec {side}: {per} B a frame")
+        if side == "draft":
+            draft_logits = lg
+    del cache
+    rise = serve_vs_teacher(f"encdec {tc.name}", tp, toks, ENCDEC_PROMPT,
+                            enc_embeds=frames[tc.d_model],
+                            measure_rise=True)
+    one_layer = 2 * ENCDEC_BATCH * ENC_LEN * tc.n_kv_heads * tc.head_dim * 4
+    print(f"  a decode step raises max_memory_allocated by at most "
+          f"{rise / 1e6:.2f} MB; one layer's cross K/V in float32 is "
+          f"{one_layer / 1e6:.1f} MB, the whole cross cache in float32 "
+          f"{one_layer * tc.n_layers / 1e9:.2f} GB")
+    check(rise < one_layer, f"encdec: a decode step allocated {rise} B, as "
+          "much as a float32 copy of one layer's cross K/V")
+    lp, V = pad_logits(draft_logits)
+    C, L = k.plan_cluster(lp.shape[1])
+    print(f"  SQS kernels at the draft's next-step logits: V {V}, Vp "
+          f"{lp.shape[1]}, cluster plan C {C} blocks a row, L {L} entries a "
+          f"block, {k.smem_bytes(C, L)} B of shared memory a block")
+    check(C == 16, f"encdec: cluster plan C {C}, not 16 blocks a row")
+    hold_sqs("encdec", "ksqs", lp, None)
+    hold_sqs("encdec", "csqs", lp, torch.full(
+        (lp.shape[0],), MethodConfig("csqs").beta0, device=dev))
+    print("phase 14 (c): the engine refuses an encoder-decoder target or "
+          "draft, in fixed batch and in slots; launch.serve exits 2")
+
+    def decoder_only(cfg):
+        return dataclasses.replace(
+            configs.smoke_variant(cfg), name=cfg.name + "-decoder-smoke",
+            family="dense", n_encoder_layers=0, frontend="none",
+            vocab=cfg.vocab, dtype="bfloat16")
+    for side in ("target", "draft"):
+        if side == "target":
+            d_cfg = decoder_only(dc)
+            pair = (d_cfg, seeded_model(d_cfg, 3, dev), tc, tp)
+        else:
+            t_cfg = decoder_only(tc)
+            pair = (dc, dp, t_cfg, seeded_model(t_cfg, 3, dev))
+        eng = EdgeCloudEngine(*pair, MethodConfig("ksqs", K=64, ell=100),
+                              EngineConfig(L_max=L_MAX), seed=0, device=dev)
+        host_prompt = prompt.cpu().numpy()
+        for label, call in (("fixed batch",
+                             lambda: eng.run(host_prompt, 1)),
+                            ("slots", lambda: eng.init_slots(SLOTS, 64))):
+            try:
+                call()
+            except EncoderDecoderServingError as e:
+                print(f"  {side} {ENCDEC_ARCH}, {label}: refused: {e}")
+            else:
+                raise CheckFailed(f"encdec {side} {label}: served")
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            serve_mod.main(["--arch", ENCDEC_ARCH, "--rounds", "1"])
+    except SystemExit as e:
+        check(e.code == 2, f"launch.serve exited {e.code}")
+        print(f"  launch.serve --arch {ENCDEC_ARCH}: exit {e.code}, "
+              f"{err.getvalue().strip().splitlines()[-1]}")
+    else:
+        raise CheckFailed("launch.serve served an encoder-decoder model")
+    del tp, dp, eng, pair
+    free_cuda()
+    serve_vs_teacher(f"encdec {tc.name}",
+                     seeded_model(tc, 1, dev, dtype=torch.float32), toks,
+                     ENCDEC_PROMPT, enc_embeds=frames[tc.d_model])
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    B, S_train, steps = ENCDEC_TRAIN
+    step_ms, make = [], train_mod.make_train_step
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+        return run
+    train_mod.make_train_step = timed_make
+    try:
+        hist = train_mod.main(["--arch", ENCDEC_ARCH, "--steps", str(steps),
+                               "--batch", str(B), "--seq", str(S_train),
+                               "--log-every", "1"])
+    finally:
+        train_mod.make_train_step = make
+    peak = torch.cuda.max_memory_allocated()
+    check(len(hist) == steps and all(math.isfinite(h["loss"])
+                                     for h in hist),
+          f"encdec train: {hist}")
+    print(f"  launch.train, {steps} steps of {tc.name} at B {B} x S "
+          f"{S_train} with 32 stub frames a row: losses "
+          + " ".join(f"{h['loss']:.4f}" for h in hist)
+          + "; step ms " + " ".join(f"{t:.1f}" for t in step_ms)
+          + f"; peak {peak / 1e9:.2f} GB allocated, against 16 B a "
+          f"parameter = {16 * n_t / 1e9:.2f} GB")
+
+
+def phase_encdec_mrope(dev):
+    """Phase 14, after the earlier models are freed.  Returns the SQS
+    launches of the phase."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    launches = phase_vl(dev)
+    print(f"  phase 14 (a): {time.perf_counter() - t0:.1f} s; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated")
+    free_cuda()
+    t1 = time.perf_counter()
+    phase_encdec(dev)
+    print(f"  phase 14 (b), (c): {time.perf_counter() - t1:.1f} s")
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s; SQS launches "
+          f"{launches}")
     return launches
 
 
@@ -2727,30 +3122,31 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         tcp_launches = phase_tcp(dev, tc, dc, tp, dp, tmp)
     del tp, dp
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     torch.cuda.reset_peak_memory_stats()
     moe_launches = phase_moe(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     pair_launches = phase_pair(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     ssm_launches = phase_ssm(dev)
     check(all(n > 0 for n in ssm_launches.values()), "phase 12 never "
           f"launched a kernel: {ssm_launches}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_cuda()
     mla_launches = phase_mla_window(dev)
     check(all(n > 0 for n in mla_launches.values()), "phase 13 never "
           f"launched a kernel: {mla_launches}")
+    free_cuda()
+    vl_launches = phase_encdec_mrope(dev)
+    check(all(n > 0 for n in vl_launches.values()), "phase 14 never "
+          f"launched a kernel: {vl_launches}")
     for r in rows:
         r["launches"] += (tcp_launches.get(r["name"], 0)
                           + moe_launches.get(r["name"], 0)
                           + pair_launches.get(r["name"], 0)
                           + ssm_launches.get(r["name"], 0)
-                          + mla_launches.get(r["name"], 0))
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s")
+                          + mla_launches.get(r["name"], 0)
+                          + vl_launches.get(r["name"], 0))
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ with it: the dense prefix layers' leaves are unstacked, prefix layer i
 under ``prefix/l{i}``; body leaves are period-stacked, body layer j (layer
 n_prefix + j) at index j // P of the leaves of period position ``p{j % P}``
 (P the config's period, 1 for a homogeneous stack), and are unstacked one
-layer each.  ``to_jax_tree`` is its inverse: the reference's nested
+layer each; an encoder's leaves are stacked over its layers
+(``encoder/...``, the reference's ``jax.vmap``), encoder layer i at index
+i.  ``to_jax_tree`` is its inverse: the reference's nested
 numpy tree in float32, body leaves stacked again.  Neither imports
 anything of the JAX package.
 
@@ -50,11 +52,19 @@ SSM_LEAVES = {
 MLA_LEAVES = ("w_q", "w_dkv", "w_krope", "w_uk", "w_uv", "w_o")
 
 
+def _attn_leaves(prefix: str, a):
+    """A GQA attention's projections (its biases are added by the
+    caller)."""
+    return {f"{prefix}/{n}": getattr(a, n) for n in ("w_q", "w_k", "w_v",
+                                                     "w_o")}
+
+
 def leaves(model: Transformer):
     """(parameter, jax path) pairs in a fixed order.  A prefix layer's
     path is ``prefix/l{i}/...``; a body leaf's ends in a period index:
     body layer j's leaf is row j // P of the reference's
-    ``body/p{j % P}/...`` stack."""
+    ``body/p{j % P}/...`` stack; encoder layer i's leaf is row i of
+    ``encoder/...``."""
     out = [(model.embedding, ("embed", "embedding")),
            (model.final_norm, ("final_norm",))]
     if model.lm_head is not None:
@@ -72,9 +82,7 @@ def leaves(model: Transformer):
             leaves.update({f"attn/{n}": getattr(blk.attn, n)
                            for n in MLA_LEAVES})
         else:
-            a = blk.attn
-            leaves.update({"attn/w_q": a.w_q, "attn/w_k": a.w_k,
-                           "attn/w_v": a.w_v, "attn/w_o": a.w_o})
+            leaves.update(_attn_leaves("attn", blk.attn))
         if blk.mlp is not None:
             leaves.update(_mlp_leaves("mlp", blk.mlp))
         elif blk.moe is not None:
@@ -87,6 +95,9 @@ def leaves(model: Transformer):
             a = blk.attn
             leaves.update({"attn/b_q": a.b_q, "attn/b_k": a.b_k,
                            "attn/b_v": a.b_v})
+        if blk.cross is not None:
+            leaves["norm_x"] = blk.norm_x
+            leaves.update(_attn_leaves("cross", blk.cross))
         j = i - n_prefix
         for path, prm in leaves.items():
             if j < 0:
@@ -94,6 +105,13 @@ def leaves(model: Transformer):
             else:
                 out.append((prm, ("body", f"p{j % P}", *path.split("/"),
                                   j // P)))
+    if model.encoder is not None:
+        for i, lyr in enumerate(model.encoder.layers):
+            enc = {"norm1": lyr.norm1, "norm2": lyr.norm2,
+                   **_attn_leaves("attn", lyr.attn),
+                   **_mlp_leaves("mlp", lyr.mlp)}
+            out += [(prm, ("encoder", *path.split("/"), i))
+                    for path, prm in enc.items()]
     return out
 
 
@@ -174,7 +192,7 @@ def _fill_constant(prm, path) -> bool:
     Mamba's A_log / D / dt_bias, the forget-gate biases); False for a
     random leaf."""
     name = _leaf_name(path)
-    if name in ("norm1", "norm2", "final_norm", "norm_w", "D"):
+    if name in ("norm1", "norm2", "norm_x", "final_norm", "norm_w", "D"):
         prm.fill_(1.0)
     elif name == "b_f":
         prm.fill_(3.0)

@@ -45,6 +45,12 @@ key still inside the window; ``models.attention``).  Both actors refuse a
 cache capacity past W (``WindowWrapError``) before any round, in
 fixed-batch and slot mode alike.
 
+An encoder-decoder model is not served: the reference's fixed-batch
+prefill calls the model without the encoder's frames and crashes, and its
+slot mode asserts against it.  Both actors refuse one by name
+(``EncoderDecoderServingError``) in the same places; the model API
+(``models.model``) and training run it.
+
 Randomness comes only from per-row threefry keys (``repro_torch.prng``),
 which give jax's bits: the token streams equal the reference's.
 """
@@ -133,8 +139,20 @@ class WindowWrapError(ValueError):
     logits after a rejected draft."""
 
 
-def check_window(cfg: ModelConfig, cache_len: int):
-    """Refuse speculative rounds on a ring that can wrap."""
+ENCDEC_REFUSAL = ("encoder-decoder models are not served (the engine has "
+                  "no encoder frames to prefill with); run them through "
+                  "the model API or training")
+
+
+class EncoderDecoderServingError(ValueError):
+    """An encoder-decoder model was asked to serve."""
+
+
+def check_servable(cfg: ModelConfig, cache_len: int):
+    """Refuse an encoder-decoder model, and speculative rounds on a ring
+    that can wrap."""
+    if cfg.n_encoder_layers:
+        raise EncoderDecoderServingError(f"{cfg.name}: {ENCDEC_REFUSAL}")
     W = window(cfg)
     if W and cache_len > W:
         raise WindowWrapError(
@@ -346,14 +364,14 @@ class EdgeDraftEngine:
 
     def init_slots(self, n_slots: int, cache_len: int,
                    spec: Optional[PagedSpec]):
-        check_window(self.dc, cache_len)
+        check_servable(self.dc, cache_len)
         self._alloc_state(n_slots)
         self.cache_len = cache_len
         self.dcache = model_mod.init_cache(self.model, n_slots, cache_len,
                                            paged=spec)
 
     def prefill_batch(self, prompts, cache_len: int):
-        check_window(self.dc, cache_len)
+        check_servable(self.dc, cache_len)
         B, S0 = prompts.shape
         self._alloc_state(B)
         self.cache_len = cache_len
@@ -619,14 +637,14 @@ class CloudVerifyEngine:
 
     def init_slots(self, n_slots: int, cache_len: int,
                    spec: Optional[PagedSpec]):
-        check_window(self.tc, cache_len)
+        check_servable(self.tc, cache_len)
         self._alloc_state(n_slots)
         self.cache_len = cache_len
         self.tcache = model_mod.init_cache(self.model, n_slots, cache_len,
                                            paged=spec)
 
     def prefill_batch(self, prompts, cache_len: int):
-        check_window(self.tc, cache_len)
+        check_servable(self.tc, cache_len)
         B, S0 = prompts.shape
         self._alloc_state(B)
         self.cache_len = cache_len

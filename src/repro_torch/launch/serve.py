@@ -39,6 +39,11 @@ only in lockstep rounds).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \
         --smoke --device cpu --rounds 2                    # CPU smoke
 
+An encoder-decoder config (``seamless-m4t-large-v2``) is refused at
+argument time (exit 2, ``core.engine.ENCDEC_REFUSAL``): the engine does
+not serve one, as the reference cannot; ``qwen2-vl-72b`` serves as text
+(M-RoPE positions t == h == w).
+
 Weights come from ``--target-ckpt`` / ``--draft-ckpt`` (flat-npz
 checkpoints of ``repro_torch.launch.train`` or of the reference's
 trainer); an empty flag draws random ones with ``bridge.seeded_model``
@@ -55,8 +60,9 @@ import json
 from repro_torch import configs, resolve_device
 from repro_torch.bridge import from_jax, seeded_model
 from repro_torch.core.channel import ChannelConfig
-from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
-                                     MethodConfig, is_stateful, summarize)
+from repro_torch.core.engine import (ENCDEC_REFUSAL, EdgeCloudEngine,
+                                     EngineConfig, MethodConfig, is_stateful,
+                                     summarize)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.obs import DecompTracker, Obs, span_names_by_clock
 from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
@@ -358,6 +364,8 @@ def main(argv=None):
     if (args.trace_out or args.metrics_out) and not args.trace:
         ap.error("--trace-out/--metrics-out require --trace")
     tc = configs.get_config(args.arch)
+    if tc.n_encoder_layers:
+        ap.error(f"{tc.name}: {ENCDEC_REFUSAL}")
     # sequential-state models roll back only in lockstep simulated rounds
     if is_stateful(tc) and args.trace and args.pipeline == "pipelined":
         ap.error(PIPELINED_REFUSAL)

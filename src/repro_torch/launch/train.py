@@ -1,6 +1,8 @@
 """Training launcher of the port (mirrors ``repro.launch.train``): one
 model trained on the seeded synthetic corpus, saved as a flat-npz
-checkpoint that either framework loads.
+checkpoint that either framework loads.  An encoder-decoder config
+trains on the audio stub's frames (32 a row), as the reference's launcher
+feeds them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gptneo-1.3b \\
         --smoke --device cpu --steps 200 --batch 16 --seq 64 \\
@@ -19,6 +21,7 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.bridge import seeded_model, to_jax_tree
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.models.frontend import audio_frame_embeds
 from repro_torch.models.model import param_count
 from repro_torch.train import checkpoint
 from repro_torch.train.optimizer import AdamWConfig, init_state
@@ -69,6 +72,11 @@ def main(argv=None):
     t0 = time.time()
     for i, b in enumerate(data.batches(args.steps)):
         batch = {"tokens": torch.from_numpy(b["tokens"]).to(device)}
+        if cfg.n_encoder_layers:
+            # the audio stub's frames, 32 a row, drawn from the step index
+            gen = torch.Generator(device=device).manual_seed(i)
+            batch["enc_embeds"] = audio_frame_embeds(gen, args.batch, 32,
+                                                     cfg.d_model)
         model, opt_state, m = step_fn(model, opt_state, batch)
         if i % args.log_every == 0 or i == args.steps - 1:
             m = {k: float(v) for k, v in m.items()}

@@ -1,7 +1,9 @@
-"""Attention: GQA (full or sliding-window) and MLA (DeepSeek-V2), prefill
-over the prompt and extend over a cache (mirrors
-``repro.models.attention``; cross-attention comes with the enc-dec
-family).
+"""Attention: GQA (full or sliding-window), MLA (DeepSeek-V2) and
+cross-attention (encoder-decoder), prefill over the prompt and extend
+over a cache (mirrors ``repro.models.attention``).
+
+Positions are (B, S), or (3, B, S) M-RoPE (t, h, w) ids; masks and ring
+slots read the temporal stream ``positions[0]``, as the reference does.
 
 KV caches come in two layouts, each in the compute dtype or in int8 with
 per-(position, head) f32 scale tables:
@@ -50,6 +52,16 @@ float32, so the two differ only in the order of the sums.
 with gradients on, each query chunk of ``masked_attention`` is
 checkpointed (its scores are recomputed in the backward), as the
 reference's ``jax.checkpoint(chunk)``.
+
+Cross-attention attends a decoder position to every encoder frame
+(non-causal, all positions 0, optionally only the frames in
+``enc_valid``).  Its K/V are computed once from the encoder's output
+(``cross_kv``) and cached in the compute dtype beside the layer's own KV;
+decode and verify read them and never write them.  On the card, outside
+autograd, ``cross_attend`` reads the cached K/V in place through
+``_cache_bmm`` with float32 scores and output, the probabilities in the
+cache's dtype, as ``_extend_core`` does; on the CPU and with gradients
+on it runs the reference's widened float32 ``masked_attention``.
 """
 from __future__ import annotations
 
@@ -104,7 +116,12 @@ def cache_capacity(cfg: ModelConfig, seq: int) -> int:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    """GQA leaves: w_q (d, nq, hd), w_k / w_v (d, nkv, hd), w_o (nq, hd, d)
+    and, with ``cfg.qkv_bias``, biases.  The ``cross`` form (a decoder's
+    cross-attention, an encoder layer's self-attention) never has a bias,
+    as the reference's ``init_attn(cross=True)``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, cross: bool = False):
         super().__init__()
         d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, \
             cfg.n_kv_heads
@@ -112,7 +129,7 @@ class Attention(nn.Module):
         self.w_k = param(d, nkv, hd, dtype=dtype, device=device)
         self.w_v = param(d, nkv, hd, dtype=dtype, device=device)
         self.w_o = param(nq, hd, d, dtype=dtype, device=device)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.b_q = param(nq, hd, dtype=dtype, device=device, fill=0.0)
             self.b_k = param(nkv, hd, dtype=dtype, device=device, fill=0.0)
             self.b_v = param(nkv, hd, dtype=dtype, device=device, fill=0.0)
@@ -169,6 +186,12 @@ def _qkv(cfg, p: Attention, x, positions):
         v = v + p.b_v.to(x.dtype)
     return (rope_apply_by_cfg(cfg, q, positions),
             rope_apply_by_cfg(cfg, k, positions), v)
+
+
+def pos2d(positions):
+    """The (B, S) positions of masks and ring slots: the temporal stream
+    of (3, B, S) M-RoPE ids."""
+    return positions if positions.ndim == 2 else positions[0]
 
 
 def _pick_chunk(S: int, target: int = 512) -> int:
@@ -331,6 +354,7 @@ def attn_full(cfg: ModelConfig, p: Attention, x, positions):
     """Train path: the full sequence, causal (and windowed), no cache
     returned."""
     q, k, v = _qkv(cfg, p, x, positions)
+    positions = pos2d(positions)
     o = masked_attention(q, k, v, positions, positions, causal=True,
                          window=window(cfg))
     return _out(o, p.w_o)
@@ -343,6 +367,7 @@ def attn_prefill(cfg: ModelConfig, p: Attention, x, positions):
     keys, position p at slot p % W."""
     q, k, v = _qkv(cfg, p, x, positions)
     W = window(cfg)
+    positions = pos2d(positions)
     o = masked_attention(q, k, v, positions, positions, causal=True,
                          window=W)
     B, S = x.shape[:2]
@@ -516,6 +541,7 @@ def mla_full(cfg: ModelConfig, p: MLA, x, positions,
     k_rope_b = k_rope[:, :, None, :].expand(-1, -1, cfg.n_heads, -1)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope_b], -1)
+    positions = pos2d(positions)
     out = _out(masked_attention(q, k, v, positions, positions, causal=True),
                p.w_o)
     if return_cache:
@@ -566,3 +592,46 @@ def mla_extend(cfg: ModelConfig, p: MLA, x, positions, cache, pos):
     o = torch.einsum("blnr,rnh->blnh", ctx.view(B, L, nq, rank),
                      p.w_uv.float())
     return _out(o.to(dt), p.w_o), cache
+
+
+# ----------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ----------------------------------------------------------------------
+def cross_kv(cfg: ModelConfig, p: Attention, enc_out):
+    """One decoder layer's cross K/V from the encoder's output (B, S_enc,
+    d): {"k", "v"} (B, S_enc, nkv, hd), unroped."""
+    return {"k": _proj(enc_out, p.w_k), "v": _proj(enc_out, p.w_v)}
+
+
+def _cross_in_place(q, k, v, enc_valid):
+    """q (B, S, nq, hd) against every frame of the cached k / v (B, S_enc,
+    nkv, hd), read in place: float32 scores scaled after the product, the
+    probabilities in the cache's dtype, float32 output."""
+    B, S, nq, hd = q.shape
+    nkv = k.shape[2]
+    qpk = nq // nkv
+    a = q.reshape(B, S, nkv, qpk, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, nkv, qpk * S, hd).to(k.dtype)
+    s = _cache_bmm(a, k, transpose=True) * _inv_sqrt(hd, q.device)
+    if enc_valid is not None:
+        s = torch.where(enc_valid[:, None, None, :], s, NEG_INF)
+    o = _cache_bmm(softmax(s).to(v.dtype), v, transpose=False)
+    return o.view(B, nkv, qpk, S, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, S, nq, hd).to(q.dtype)
+
+
+def cross_attend(cfg: ModelConfig, p: Attention, x, kv, enc_valid=None):
+    """x (B, S, d) attends to the cross K/V ``kv`` of every encoder frame
+    (or of those where ``enc_valid`` (B, S_enc)); returns (B, S, d)."""
+    q = _proj(x, p.w_q)
+    k, v = kv["k"], kv["v"]
+    if k.is_cuda and not torch.is_grad_enabled():
+        o = _cross_in_place(q, k, v, enc_valid)
+    else:
+        B, S = x.shape[:2]
+        qpos = torch.zeros((B, S), dtype=torch.int64, device=x.device)
+        kpos = torch.zeros((B, k.shape[1]), dtype=torch.int64,
+                           device=x.device)
+        o = masked_attention(q, k, v, qpos, kpos, causal=False,
+                             k_valid=enc_valid)
+    return _out(o, p.w_o)

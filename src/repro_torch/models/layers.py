@@ -1,5 +1,5 @@
-"""Shared layer primitives: RMSNorm, RoPE, SwiGLU MLP, embedding and LM
-head (mirrors ``repro.models.layers``; M-RoPE comes with its family).
+"""Shared layer primitives: RMSNorm, RoPE and M-RoPE, SwiGLU MLP,
+embedding and LM head (mirrors ``repro.models.layers``).
 
 A serving model stores its weights in the config's compute dtype (bf16
 for the full-size configs, float32 for the smoke variants); a model built
@@ -52,24 +52,47 @@ def rope_freqs(head_dim: int, theta: float, device):
                                   device=device), e)
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, S, H, hd); positions: (B, S)."""
-    hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
-    ang = positions[..., None].float() * freqs               # (B, S, hd/2)
-    ang = ang[..., None, :]                                  # (B, S, 1, hd/2)
+def _rotate(x, ang):
+    """Rotate the two halves of x (..., S, H, hd) by the float32 angles
+    ang (..., S, hd/2), shared over the heads."""
+    ang = ang[..., None, :]                                  # (..., S, 1, hd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
 
 
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, hd); positions: (B, S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)         # (hd/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x, positions3, sections, theta: float):
+    """Multimodal RoPE (Qwen2-VL).  positions3: (3, B, S), the (t, h, w)
+    ids; ``sections`` partitions the hd/2 frequencies among the three
+    id streams, in order (frequency i reads stream ``repeat(arange(3),
+    sections)[i]``)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(hd, theta, x.device)                  # (half,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))             # (half,)
+    pos = positions3.float()[sec_id].movedim(0, -1)          # (B, S, half)
+    return _rotate(x, pos * freqs)
+
+
 def rope_apply_by_cfg(cfg: ModelConfig, x, positions):
+    """positions: (B, S) for rope; (3, B, S) for mrope, where text-only
+    (B, S) positions stand for t == h == w."""
     if cfg.rope_type == "none":
         return x
-    if cfg.rope_type != "rope":
-        raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
-                                  "ported yet")
+    if cfg.rope_type == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand((3,) + positions.shape)
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     return apply_rope(x, positions, cfg.rope_theta)
 
 

@@ -5,13 +5,16 @@
                                                      see repro_torch.bridge)
     param_count(model)                             -> int
     train_loss(model, batch, remat=True)           -> (loss, metrics)
-    forward_logits(model, tokens)                  -> logits (B, S, V)
-    prefill(model, tokens, cache_len)              -> (last_logits, cache)
+    forward_logits(model, tokens, positions=None,
+                   enc_embeds=None)                -> logits (B, S, V)
+    prefill(model, tokens, cache_len, positions=None,
+            enc_embeds=None)                       -> (last_logits, cache)
     extend_step(model, tokens, cache, pos,
                 collect_traj=False)                -> (logits (B,L,V), cache,
                                                      traj)
     decode_step(model, token, cache, pos)          -> (logits (B,V), cache)
-    init_cache(model, batch, seq, paged=None)      -> empty serving cache
+    init_cache(model, batch, seq, paged=None,
+               enc_seq=0)                          -> empty serving cache
     set_page_tables(cache, pt)                     -> cache, tables refreshed
     write_prefill_to_slot(cfg, big, small, slot,
                           ...)                     -> prompt into one slot
@@ -37,6 +40,18 @@ every one of the L positions, (B, L, ...) leaves (empty without it), from which
 token.  The serve entry points run without gradients; ``train_loss`` and
 ``forward_logits`` run with whatever grad mode the caller has.
 
+Positions default to 0, 1, ... from the first token (from ``pos`` in
+extend); an M-RoPE config takes (3, B, S) (t, h, w) ids, by default
+t == h == w, and a caller may pass others (``models.frontend``'s vision
+patch grid) to ``prefill``, ``forward_logits`` and ``train_loss``
+(``batch["positions"]``); extend and decode always take the default, as
+the reference's.  An encoder-decoder model (``cfg.n_encoder_layers``)
+encodes ``enc_embeds`` (B, S_enc, d), the frontend stub's frames
+(``batch["enc_embeds"]`` in training), once a call; ``prefill`` stores
+each decoder layer's cross K/V, (B, S_enc, nkv, hd) in the compute
+dtype, in that layer's cache dict under ``transformer.CROSS_LEAVES``,
+which extend and decode read and never write.
+
 A model built with ``trainable=True`` holds float32 masters with
 gradients on (the reference's parameters), computing in ``dtype``; a
 serving model stores its weights in ``dtype`` itself, so no float32 copy
@@ -52,12 +67,12 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import ssm
+from repro_torch.models import encdec, ssm
 from repro_torch.models.layers import (compute_dtype, embed_apply,
                                        lm_head_apply, param, rmsnorm)
-from repro_torch.models.transformer import (SEQ_BLOCKS, apply_train,
-                                           check_supported, layer_kinds,
-                                           make_layers)
+from repro_torch.models.transformer import (CROSS_LEAVES, SEQ_BLOCKS,
+                                           apply_train, check_supported,
+                                           layer_kinds, make_layers)
 
 
 class Transformer(nn.Module):
@@ -76,6 +91,8 @@ class Transformer(nn.Module):
         self.layers = make_layers(cfg, store, device)
         self.final_norm = param(d, dtype=torch.float32, device=device,
                                 fill=1.0)
+        self.encoder = encdec.Encoder(cfg, store, device) \
+            if cfg.n_encoder_layers else None
         self.requires_grad_(trainable)
 
     @property
@@ -91,24 +108,51 @@ def param_count(model: Transformer) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _positions(batch: int, seq: int, start, device):
+def _positions(cfg: ModelConfig, batch: int, seq: int, start, device):
+    """start, start + 1, ... a row (``start`` an int or (B,)): (B, S), or
+    (3, B, S) with t == h == w for M-RoPE."""
     p = torch.arange(seq, dtype=torch.int64, device=device)[None]
     if isinstance(start, int):
-        return (p + start).expand(batch, seq)
-    return p + start.to(torch.int64)[:, None]
+        p = (p + start).expand(batch, seq)
+    else:
+        p = p + start.to(torch.int64)[:, None]
+    return p[None].expand((3,) + p.shape) if cfg.rope_type == "mrope" else p
+
+
+def _encode(model: Transformer, enc_embeds):
+    """The encoder's output for ``enc_embeds`` (B, S_enc, d), cast to the
+    compute dtype; None for a decoder-only model."""
+    if model.encoder is None:
+        return None
+    if enc_embeds is None:
+        raise ValueError(f"{model.cfg.name} is an encoder-decoder model: "
+                         "pass enc_embeds (B, S_enc, d_model)")
+    return encdec.encode(model.encoder, enc_embeds.to(model.dtype))
+
+
+def _stack(model: Transformer, tokens, positions, enc_embeds, **kw):
+    """The train-mode stack over ``tokens`` (B, S) at ``positions`` (the
+    default when None): returns (x, aux)."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = _positions(model.cfg, B, S, 0, tokens.device)
+    x = embed_apply(model.embedding, tokens, model.dtype)
+    return apply_train(model.layers, x, positions,
+                       enc_out=_encode(model, enc_embeds),
+                       n_prefix=model.cfg.n_prefix_layers, **kw)
 
 
 def train_loss(model: Transformer, batch, remat: bool = True):
-    """batch: {"tokens": (B, S+1) int[, "loss_mask": (B, S)]}.  Returns
-    (loss, {"ce", "aux", "accuracy"}): the masked mean next-token cross
-    entropy over float32 logits plus the summed MoE aux loss; MoE layers
-    drop tokens past capacity, as the reference trains."""
+    """batch: {"tokens": (B, S+1) int[, "positions": (B, S) or (3, B, S)
+    M-RoPE ids, "enc_embeds": (B, S_enc, d) for an encoder-decoder model,
+    "loss_mask": (B, S)]}.  Returns (loss, {"ce", "aux", "accuracy"}): the
+    masked mean next-token cross entropy over float32 logits plus the
+    summed MoE aux loss; MoE layers drop tokens past capacity, as the
+    reference trains."""
     tokens = batch["tokens"]
-    inputs, labels = tokens[:, :-1], tokens[:, 1:].long()
-    B, S = inputs.shape
-    x = embed_apply(model.embedding, inputs, model.dtype)
-    x, aux = apply_train(model.layers, x,
-                         _positions(B, S, 0, tokens.device), remat=remat)
+    labels = tokens[:, 1:].long()
+    x, aux = _stack(model, tokens[:, :-1], batch.get("positions"),
+                    batch.get("enc_embeds"), remat=remat)
     logits = model.head(x)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[..., None])[..., 0]
@@ -122,30 +166,37 @@ def train_loss(model: Transformer, batch, remat: bool = True):
     return ce + aux, {"ce": ce, "aux": aux, "accuracy": acc}
 
 
-def forward_logits(model: Transformer, tokens):
+def forward_logits(model: Transformer, tokens, positions=None,
+                   enc_embeds=None):
     """Teacher-forced float32 logits (B, S, V), the oracle of the serve
     path: MoE layers run dropless, as inference routes."""
-    B, S = tokens.shape
-    x = embed_apply(model.embedding, tokens, model.dtype)
-    x, _ = apply_train(model.layers, x, _positions(B, S, 0, tokens.device),
-                       remat=False, dropless=True)
+    x, _ = _stack(model, tokens, positions, enc_embeds, remat=False,
+                  dropless=True)
     return model.head(x)
 
 
 @torch.no_grad()
-def prefill(model: Transformer, tokens, cache_len: Optional[int] = None):
+def prefill(model: Transformer, tokens, cache_len: Optional[int] = None,
+            positions=None, enc_embeds=None):
     """Run the prompt (B, S) and build the decode cache: attention caches
     padded with zeros out to ``attention.cache_capacity(cfg, cache_len)``
     positions (a sliding window's wrapped ring is already full), stateful
-    layers' state after the prompt.  Returns (last_logits (B, V),
-    cache)."""
+    layers' state after the prompt, and an encoder-decoder model's cross
+    K/V of ``enc_embeds`` in every body layer's dict.  Returns
+    (last_logits (B, V), cache)."""
     B, S = tokens.shape
-    cap = attn_mod.cache_capacity(model.cfg, cache_len or S)
-    positions = _positions(B, S, 0, tokens.device)
+    cfg = model.cfg
+    cap = attn_mod.cache_capacity(cfg, cache_len or S)
+    if positions is None:
+        positions = _positions(cfg, B, S, 0, tokens.device)
+    enc_out = _encode(model, enc_embeds)
     x = embed_apply(model.embedding, tokens, model.dtype)
     cache = []
-    for blk in model.layers:
-        x, c = blk.prefill(x, positions)
+    for i, blk in enumerate(model.layers):
+        kv = None
+        if enc_out is not None and i >= cfg.n_prefix_layers:
+            kv = attn_mod.cross_kv(cfg, blk.cross, enc_out)
+        x, c = blk.prefill(x, positions, kv)
         if not blk.stateful:
             grown = {}
             for name, t in c.items():
@@ -156,6 +207,8 @@ def prefill(model: Transformer, tokens, cache_len: Optional[int] = None):
                     t = full
                 grown[name] = t
             c = grown
+        if kv is not None:
+            c.update(zip(CROSS_LEAVES, (kv["k"], kv["v"])))
         cache.append(c)
     return model.head(x[:, -1:])[:, 0], cache
 
@@ -169,7 +222,7 @@ def extend_step(model: Transformer, tokens, cache, pos,
     {layer index: {leaf: (B, L, ...)}}, the state after every position,
     with ``collect_traj`` and {} without."""
     B, L = tokens.shape
-    positions = _positions(B, L, pos, tokens.device)
+    positions = _positions(model.cfg, B, L, pos, tokens.device)
     x = embed_apply(model.embedding, tokens, model.dtype)
     traj = {}
     for i, (blk, c) in enumerate(zip(model.layers, cache)):
@@ -182,12 +235,15 @@ def extend_step(model: Transformer, tokens, cache, pos,
 
 
 def init_cache(model: Transformer, batch: int, seq: int,
-               paged: Optional[attn_mod.PagedSpec] = None):
+               paged: Optional[attn_mod.PagedSpec] = None,
+               enc_seq: int = 0):
     """Empty serving cache: dense KV for attention layers, zero states for
     stateful ones.  ``paged``: every eligible body attention layer (full
     GQA, ``attention.paged_eligible``) gets a shared page pool + per-slot
     page table instead of dense (B, seq, ...) KV; prefix layers, MLA and
-    sliding-window layers stay dense, as the reference's."""
+    sliding-window layers stay dense, as the reference's.  An
+    encoder-decoder model's body layers also get zero cross K/V of
+    ``enc_seq`` frames."""
     cfg, dev = model.cfg, model.device
     cache = []
     for i, blk in enumerate(model.layers):
@@ -201,6 +257,11 @@ def init_cache(model: Transformer, batch: int, seq: int,
         else:
             cache.append(attn_mod.make_kv_cache(cfg, batch, seq,
                                                 model.dtype, dev))
+        if model.encoder is not None and i >= cfg.n_prefix_layers:
+            for name in CROSS_LEAVES:
+                cache[-1][name] = torch.zeros(
+                    (batch, enc_seq, cfg.n_kv_heads, cfg.head_dim),
+                    dtype=model.dtype, device=dev)
     return cache
 
 
@@ -223,8 +284,13 @@ def write_prefill_to_slot(cfg: ModelConfig, big, small, slot: int,
     reference's dynamic_update_slice), a paged layer the prompt's first
     ``length`` positions through ``pt_row``, and a stateful layer's state
     into row ``slot`` of new tensors (state tensors are never written in
-    place)."""
+    place).  An encoder-decoder layer's cross K/V go into row ``slot`` in
+    place, whatever the layout of its own KV."""
     for (block, _), b, s in zip(layer_kinds(cfg), big, small):
+        for name in CROSS_LEAVES:
+            if name in s:
+                b[name][slot] = s[name][0].to(b[name].dtype)
+        s = {name: t for name, t in s.items() if name not in CROSS_LEAVES}
         if "page_table" in b:
             attn_mod.prefill_into_pages(b, s, pt_row, length)
         elif block not in SEQ_BLOCKS:

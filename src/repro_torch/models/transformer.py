@@ -15,7 +15,13 @@ An attention layer's cache is its KV (or MLA latent) cache, written in
 place by ``extend``; a stateful layer's cache is its recurrent state, which
 ``prefill`` and ``extend`` return as new tensors (with ``collect_traj``,
 also the state after every position, for speculative-decoding
-rollback)."""
+rollback).
+
+An encoder-decoder model's blocks carry cross-attention (``norm_x`` and a
+bias-free ``cross`` attention), applied after the sequence mixer and
+before the channel mixer: in training from the encoder's output, in
+prefill from the layer's cross K/V, in extend from the K/V cached beside
+the layer's own KV (``CROSS_LEAVES``), which extend only reads."""
 from __future__ import annotations
 
 import torch
@@ -29,6 +35,8 @@ from repro_torch.models.layers import MLP, param, rmsnorm
 from repro_torch.models.moe import MoE
 
 SEQ_BLOCKS = tuple(ssm.MIXERS)
+# an encoder-decoder layer's cached cross K/V, beside its own KV leaves
+CROSS_LEAVES = ("cross_k", "cross_v")
 
 
 class Block(nn.Module):
@@ -52,15 +60,23 @@ class Block(nn.Module):
         self.mlp = MLP(d, cfg.d_ff, dtype, device) if ffn_type == "mlp" \
             else None
         self.moe = MoE(cfg, dtype, device) if ffn_type == "moe" else None
+        if cfg.n_encoder_layers:
+            self.norm_x = param(d, dtype=torch.float32, device=device,
+                                fill=1.0)
+            self.cross = attn.Attention(cfg, dtype, device, cross=True)
+        else:
+            self.norm_x = self.cross = None
 
     @property
     def mixer(self):
         return getattr(self, self.block_type)
 
-    def train_forward(self, x, positions, dropless: bool = False):
+    def train_forward(self, x, positions, dropless: bool = False,
+                      enc_out=None):
         """The train-mode block over the full sequence: returns (x, aux
         loss).  The MoE mixer drops tokens past capacity unless
-        ``dropless`` (the teacher-forced oracle never drops)."""
+        ``dropless`` (the teacher-forced oracle never drops); a decoder
+        block attends to ``enc_out``, the encoder's output."""
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
         if self.stateful:
             a = ssm.train_seq(self.cfg, self.block_type, self.mixer, h)
@@ -69,6 +85,8 @@ class Block(nn.Module):
         else:
             a = attn.attn_full(self.cfg, self.attn, h, positions)
         x = x + a
+        if enc_out is not None:
+            x = self._cross(x, attn.cross_kv(self.cfg, self.cross, enc_out))
         if self.moe is None:
             return self._ffn(x), torch.zeros((), device=x.device)
         h = rmsnorm(x, self.norm2, self.cfg.rms_eps)
@@ -76,9 +94,10 @@ class Block(nn.Module):
         y, aux = self.moe.tokens(h.reshape(B * S, D), dropless)
         return x + y.reshape(B, S, D), aux
 
-    def prefill(self, x, positions):
+    def prefill(self, x, positions, cross_kv=None):
         """Returns (x, cache leaves): the prompt's {"k", "v"} (MLA:
-        {"latent", "k_rope"}), or the recurrent state after the prompt."""
+        {"latent", "k_rope"}), or the recurrent state after the prompt.
+        A decoder block attends to ``cross_kv``, its cross K/V."""
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
         if self.stateful:
             a, c, _ = ssm.seq(self.cfg, self.block_type, self.mixer, h)
@@ -87,7 +106,10 @@ class Block(nn.Module):
                                  return_cache=True)
         else:
             a, c = attn.attn_prefill(self.cfg, self.attn, h, positions)
-        return self._ffn(x + a), c
+        x = x + a
+        if cross_kv is not None:
+            x = self._cross(x, cross_kv)
+        return self._ffn(x), c
 
     def extend(self, x, positions, cache, pos, collect_traj: bool = False):
         """Returns (x, new state, trajectory): the state and trajectory of
@@ -105,7 +127,15 @@ class Block(nn.Module):
         else:
             a, _ = attn.attn_extend(self.cfg, self.attn, h, positions, cache,
                                     pos)
-        return self._ffn(x + a), state, traj
+        x = x + a
+        if self.cross is not None and "cross_k" in cache:
+            x = self._cross(x, {"k": cache["cross_k"],
+                                "v": cache["cross_v"]})
+        return self._ffn(x), state, traj
+
+    def _cross(self, x, kv):
+        hx = rmsnorm(x, self.norm_x, self.cfg.rms_eps)
+        return x + attn.cross_attend(self.cfg, self.cross, hx, kv)
 
     def _ffn(self, x):
         if self.norm2 is None:
@@ -129,17 +159,20 @@ def make_layers(cfg: ModelConfig, dtype, device) -> nn.ModuleList:
 
 
 def apply_train(layers, x, positions, remat: bool = True,
-                dropless: bool = False):
+                dropless: bool = False, enc_out=None, n_prefix: int = 0):
     """The layer stack in train mode: returns (x, summed aux loss).  With
     ``remat`` each layer is checkpointed (its activations recomputed in
-    the backward), as the reference's ``jax.checkpoint(period_fn)``."""
+    the backward), as the reference's ``jax.checkpoint(period_fn)``.  The
+    body's layers (after the ``n_prefix`` prefix layers) attend to
+    ``enc_out``, as the reference's body scan does."""
     aux = torch.zeros((), device=x.device)
-    for blk in layers:
+    for i, blk in enumerate(layers):
+        eo = enc_out if i >= n_prefix else None
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(blk.train_forward, x, positions, dropless,
+            x, a = checkpoint(blk.train_forward, x, positions, dropless, eo,
                               use_reentrant=False)
         else:
-            x, a = blk.train_forward(x, positions, dropless)
+            x, a = blk.train_forward(x, positions, dropless, eo)
         aux = aux + a
     return x, aux
 
@@ -148,19 +181,22 @@ def check_supported(cfg: ModelConfig):
     """The port runs GQA (full or sliding-window) and MLA attention,
     Mamba, mLSTM and sLSTM blocks with an MLP, a MoE or no channel mixer,
     after dense prefix layers, with a KV cache in the compute dtype or in
-    int8.  MLA attends over the full context: the reference's MLA ignores
-    a window in its math but sizes the cache by it, so the port refuses
-    the combination.  Encoders and modality frontends come with the
-    enc-dec family."""
+    int8, and an encoder before a GQA decoder, behind the audio or vision
+    frontend stubs.  MLA attends over the full context: the reference's
+    MLA ignores a window in its math but sizes the cache by it, so the
+    port refuses the combination.  An encoder before MLA or stateful
+    decoder layers is refused too (no config has one; a stateful layer's
+    rollback replaces its cache, cross K/V included)."""
     ok = (set(cfg.block_pattern) <= {"attn", *SEQ_BLOCKS}
           and set(cfg.ffn_pattern) <= {"mlp", "moe", "none"}
-          and cfg.n_encoder_layers == 0
           and cfg.attention in ("full", "sliding")
           and not (cfg.is_mla and cfg.attention == "sliding")
+          and not (cfg.n_encoder_layers and (
+              cfg.is_mla or set(cfg.block_pattern) != {"attn"}))
           and cfg.kv_cache_dtype in ("compute", "int8")
-          and cfg.frontend == "none")
+          and cfg.frontend in ("none", "audio", "vision"))
     if not ok:
         raise NotImplementedError(
             f"{cfg.name}: only GQA (full or sliding) / MLA attention, "
             "Mamba, mLSTM and sLSTM blocks with an MLP, MoE or no channel "
-            "mixer are ported so far")
+            "mixer, and an encoder before GQA decoder layers, are ported")

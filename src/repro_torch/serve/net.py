@@ -37,8 +37,10 @@ seed, so a mixed session hands the torch end the reference's parameters
 (``CloudServer``'s ``build_target``, ``EdgeClient``'s draft model).
 
 Scope: dense slots (no paged pool — the allocator mirror would need
-its own sync protocol) and attention-only models (per-slot verdict
-application is the stateless path).  Arrival replay submits the whole
+its own sync protocol) and attention-only decoder models (per-slot
+verdict application is the stateless path; an encoder-decoder target is
+refused at the handshake, before it is built, with
+``core.engine.EncoderDecoderServingError``).  Arrival replay submits the whole
 trace up front in arrival order — real sockets have no virtual clock
 to pause — so each cell's arrival count must fit its waiting room
 (asserted); admission order, and therefore every stream, is unchanged
@@ -65,7 +67,7 @@ from repro_torch.core import transport as tp_mod
 from repro_torch.core import wire as wire_mod
 from repro_torch.core.engine import (CloudVerifyEngine, EdgeEngineBase,
                                      EngineConfig, MethodConfig,
-                                     is_stateful)
+                                     check_servable, is_stateful)
 from repro_torch.core.transport import (MSG_ADMIT, MSG_BYE, MSG_ERROR,
                                         MSG_HELLO, MSG_HELLO_OK, MSG_STATS,
                                         MSG_VERDICTS, MSG_VERIFY,
@@ -132,6 +134,9 @@ class _Session:
             codec=engine.wire_codec)
         if is_stateful(tc):
             raise TransportError(TCP_TARGET_REFUSAL)
+        # before the target is built: an encoder-decoder target (or a
+        # ring that would wrap) is refused by name
+        check_servable(tc, config["cache_len"])
         self.cloud = CloudVerifyEngine(tc, build_target(tc, seed + 1, device),
                                        method, engine, fmt, seed, device)
         self.cloud.init_slots(config["n_slots"], config["cache_len"], None)

@@ -29,9 +29,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
     """Returns train_step(model, opt_state, batch) -> (model, opt_state,
     metrics), the model's float32 masters (``trainable=True``) updated in
     place.  ``batch["tokens"]``: (B, S+1); B must divide by
-    ``microbatches``.  Gradients accumulate in float32 over the
-    microbatches and are divided by their count; the loss and metrics are
-    their means."""
+    ``microbatches``, and every leaf is split on its first axis, so (3, B,
+    S) M-RoPE positions are refused with more than one microbatch (their
+    batch is axis 1; the reference's split slices them wrongly).
+    Gradients accumulate in float32 over the microbatches and are divided
+    by their count; the loss and metrics are their means."""
 
     def train_step(model, opt_state, batch):
         if model.cfg != cfg:
@@ -42,6 +44,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
         if B % microbatches:
             raise ValueError(f"batch {B} does not divide into "
                              f"{microbatches} microbatches")
+        positions = batch.get("positions")
+        if microbatches > 1 and positions is not None and \
+                positions.ndim == 3:
+            raise ValueError("(3, B, S) M-RoPE positions cannot be split "
+                             "into microbatches on axis 0; use "
+                             "microbatches=1")
         n = B // microbatches
         losses, metrics = [], []
         for i in range(microbatches):

@@ -4,7 +4,8 @@ decode logits agree to atol 1e-4 (torch and XLA reduce in different
 orders; the reference's own cache-consistency test allows 3e-4).  Every
 architecture the port names is the reference's config field for field
 (full size, smoke and draft), and its smoke model's prefill logits agree
-to the same atol."""
+to the same atol (an encoder-decoder model's over seeded stub frames);
+``ASSIGNED`` is the reference's list, in its order."""
 import dataclasses
 
 import numpy as np
@@ -122,7 +123,20 @@ def test_config_and_smoke_logits_match_reference(name):
     params = _numpy_params(jcfg, 30)
     model = bridge.from_jax(params, tcfg, device="cpu")
     toks = _toks(np.random.default_rng(1), (2, 7), jcfg.vocab)
+    # an encoder-decoder model prefills over the frontend stub's frames
+    # (the reference's prefill needs them; tests/test_models.py)
+    enc = None
+    if jcfg.n_encoder_layers:
+        enc = (np.random.default_rng(2).standard_normal(
+            (2, 8, jcfg.d_model)) * 0.02).astype(np.float32)
     lj, _ = prefill(jcfg, jax.tree.map(jnp.asarray, params),
-                    jnp.asarray(toks))
-    lt, _ = tmodel.prefill(model, torch.from_numpy(toks).long())
+                    jnp.asarray(toks),
+                    enc_embeds=None if enc is None else jnp.asarray(enc))
+    lt, _ = tmodel.prefill(model, torch.from_numpy(toks).long(),
+                           enc_embeds=None if enc is None
+                           else torch.from_numpy(enc))
     np.testing.assert_allclose(np.asarray(lj), lt.numpy(), atol=ATOL)
+
+
+def test_assigned_is_the_reference_list():
+    assert configs.ASSIGNED == jconfigs.ASSIGNED
