@@ -142,9 +142,27 @@ Phases:
      target or draft, in fixed batch and in slots, and ``launch.serve``'s
      exit 2.
 
+ 15. the tooling, after the enc-dec models are freed: (a) the dry run
+     (``repro_torch.launch.dryrun.run_combo``: the port's model on the
+     meta device, DTensor parameters by the ``Partitioner``, one step of
+     rank 0 of the 16 x 16 production mesh, a fake process group of 256
+     ranks, fake cuda tensors) for ``qwen2.5-3b`` x decode_32k,
+     ``qwen2-moe-a2.7b`` x prefill_32k with MoE dispatch groups,
+     ``xlstm-1.3b`` x long_500k and ``granite-3-8b`` x train_4k, each
+     ``ok``, with its peak a device, FLOPs, collective bytes by kind and
+     trace seconds; (b) rank 0 of the same mesh for real on the card
+     (``dryrun.run_rank0``) for each combo whose dry-run peak is at most
+     RANK0_MAX_PEAK: real local shards from a seeded generator, no-op
+     collectives, the rise of ``max_memory_allocated`` against the dry
+     run's peak (their ratio within RANK0_MEM_RATIO), the FLOP count
+     equal to the dry run's, and the local step's time by CUDA events
+     (compute without communication); (c) ``examples/torch_quickstart.py``
+     in process (both SQS kernels launched) and
+     ``examples/torch_train_draft_slm.py --steps 4`` as a child process.
+
 Every phase that drives a path sets the kernels' launch counts to 0
 just before it and reads them just after; the SQS rows of the kernels
-line add the launches of phases 3, 5, 8, 9, 10, 11, 12, 13 and 14.
+line add the launches of phases 3, 5, 8, 9, 10, 11, 12, 13, 14 and 15.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -3079,6 +3097,123 @@ def phase_encdec_mrope(dev):
     return launches
 
 
+# phase 15: the dry-run combos, the largest dry-run peak that rank 0 runs
+# for real on the card, and the bound on measured / predicted memory
+TOOLING_COMBOS = (("qwen2.5-3b", "decode_32k", {}),
+                  ("qwen2-moe-a2.7b", "prefill_32k",
+                   {"shard_acts": True, "moe_groups": True}),
+                  ("xlstm-1.3b", "long_500k", {}),
+                  ("granite-3-8b", "train_4k", {}))
+RANK0_MAX_PEAK = 70e9
+RANK0_MEM_RATIO = (0.85, 1.15)
+
+
+def phase_tooling(dev):
+    """Phase 15: the dry run, rank 0 for real, the two examples.  Returns
+    the SQS launches of the quickstart."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    print("phase 15 (a): dry run on the 16 x 16 production mesh (fake "
+          "group of 256 ranks, fake cuda tensors)")
+    recs = {}
+    for arch, shape, kw in TOOLING_COMBOS:
+        rec = dryrun.run_combo(arch, shape, device="cuda",
+                               opts=dryrun.Options(**kw))
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: "
+              f"{rec['status']} {rec.get('error', rec.get('reason'))}\n"
+              f"{rec.get('traceback', '')}")
+        m, c = rec["memory"], rec["collectives"]
+        print(f"  {arch} x {shape} {kw or ''}: peak "
+              f"{m['peak_per_device'] / 1e9:.3f} GB a device (arguments "
+              f"{m['argument_bytes'] / 1e9:.3f}, outputs "
+              f"{m['output_bytes'] / 1e9:.3f}, temporaries "
+              f"{m['temp_bytes'] / 1e9:.3f}); {rec['cost']['flops']:.6g} "
+              f"FLOP, {rec['cost']['bytes accessed'] / 1e9:.3f} GB "
+              f"accessed; collectives "
+              f"{c['total_collective_bytes'] / 1e9:.4f} GB "
+              + json.dumps({kd: [c['per_kind_count'][kd], v]
+                            for kd, v in c['per_kind_bytes'].items()})
+              + f" [count, bytes]; trace {rec['trace_s']} s; levers "
+              f"{rec['levers']}")
+        recs[(arch, shape)] = rec
+    print(f"  phase 15 (a): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    print("phase 15 (b): rank 0 of the same mesh for real on the card "
+          "(collectives are no-ops: memory, FLOPs and shapes only)")
+    n_real = 0
+    for arch, shape, kw in TOOLING_COMBOS:
+        rec = recs[(arch, shape)]
+        peak = rec["memory"]["peak_per_device"]
+        if peak > RANK0_MAX_PEAK:
+            print(f"  {arch} x {shape}: dry-run peak {peak / 1e9:.3f} GB > "
+                  f"{RANK0_MAX_PEAK / 1e9:.0f} GB, not run")
+            continue
+        free_cuda()
+        r = dryrun.run_rank0(arch, shape, device="cuda",
+                             opts=dryrun.Options(**kw), seed=15,
+                             time_reps=3)
+        ratio = r["mem_rise"] / peak
+        print(f"  {arch} x {shape}: max_memory_allocated rise "
+              f"{r['mem_rise'] / 1e9:.3f} GB against the dry run's "
+              f"{peak / 1e9:.3f} GB (ratio {ratio:.4f}, bound "
+              f"{RANK0_MEM_RATIO}); arguments allocated "
+              f"{r['args_allocated'] / 1e9:.3f} GB against "
+              f"{r['argument_bytes'] / 1e9:.3f}; FLOPs {r['flops']} against "
+              f"{rec['cost']['flops']}; local step (compute without "
+              f"communication) " + ", ".join(f"{t:.2f}" for t in r["ms"])
+              + " ms")
+        check(r["flops"] == rec["cost"]["flops"], f"rank 0 {arch} "
+              f"{shape}: FLOPs {r['flops']} != dry run "
+              f"{rec['cost']['flops']}")
+        check(RANK0_MEM_RATIO[0] <= ratio <= RANK0_MEM_RATIO[1],
+              f"rank 0 {arch} {shape}: memory ratio {ratio:.4f}")
+        check(r["collectives"]["per_kind_count"]
+              == rec["collectives"]["per_kind_count"],
+              f"rank 0 {arch} {shape}: collectives "
+              f"{r['collectives']['per_kind_count']} != dry run "
+              f"{rec['collectives']['per_kind_count']}")
+        n_real += 1
+    check(n_real > 0, "phase 15 (b) ran no combo")
+    free_cuda()
+    print(f"  phase 15 (b): {time.perf_counter() - t1:.1f} s")
+    t2 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", os.path.join(HERE, "examples",
+                                         "torch_quickstart.py"))
+    quick = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quick)
+    for name in k.LAUNCHES:
+        k.LAUNCHES[name] = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        quick.main(["--device", "cuda"])
+    launches = dict(k.LAUNCHES)
+    print("phase 15 (c): examples/torch_quickstart.py\n  "
+          + out.getvalue().strip().replace("\n", "\n  "))
+    check(all(launches[n] > 0 for n in ("sqs_fused", "topk_threshold")),
+          f"the quickstart launched {launches}")
+    check(all(m in out.getvalue() for m in ("K-SQS", "C-SQS")),
+          "quickstart output")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run(
+            [sys.executable, os.path.join(HERE, "examples",
+                                          "torch_train_draft_slm.py"),
+             "--steps", "4", "--out", tmp],
+            cwd=HERE, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+        check(r.returncode == 0, "torch_train_draft_slm.py: "
+              + r.stdout[-2000:] + r.stderr[-2000:])
+        ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+    print(f"  examples/torch_train_draft_slm.py --steps 4: exit 0, {ckpts}; "
+          f"SQS launches of the quickstart {launches}")
+    print(f"  phase 15 (c): {time.perf_counter() - t2:.1f} s")
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3139,14 +3274,17 @@ def main():
     vl_launches = phase_encdec_mrope(dev)
     check(all(n > 0 for n in vl_launches.values()), "phase 14 never "
           f"launched a kernel: {vl_launches}")
+    free_cuda()
+    tool_launches = phase_tooling(dev)
     for r in rows:
         r["launches"] += (tcp_launches.get(r["name"], 0)
                           + moe_launches.get(r["name"], 0)
                           + pair_launches.get(r["name"], 0)
                           + ssm_launches.get(r["name"], 0)
                           + mla_launches.get(r["name"], 0)
-                          + vl_launches.get(r["name"], 0))
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s")
+                          + vl_launches.get(r["name"], 0)
+                          + tool_launches.get(r["name"], 0))
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

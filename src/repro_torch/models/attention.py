@@ -62,6 +62,12 @@ autograd, ``cross_attend`` reads the cached K/V in place through
 ``_cache_bmm`` with float32 scores and output, the probabilities in the
 cache's dtype, as ``_extend_core`` does; on the CPU and with gradients
 on it runs the reference's widened float32 ``masked_attention``.
+
+On DTensor parameters and caches (the dry run) every attention core
+(``masked_attention``, ``_extend_attn``, ``_mla_attn``,
+``_cross_in_place``) runs per rank on its own batch rows and heads
+(``sharding.local.heads_local``), and the caches are written per rank
+(``sharding.local.write_rows``).
 """
 from __future__ import annotations
 
@@ -75,6 +81,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.slq import reciprocal
 from repro_torch.core.sqs import softmax
 from repro_torch.models.layers import param, rope_apply_by_cfg
+from repro_torch.sharding.local import heads_local, is_dtensor, write_rows
 
 NEG_INF = -1e30
 
@@ -228,6 +235,11 @@ def masked_attention(q, k, v, q_pos, k_pos, causal: bool, window: int = 0,
     absolute positions (B, S) / (B, Sk).  Query-chunked so no (S, S)
     score tensor is built at once; with gradients on, each chunk is
     checkpointed.  Returns (B, S, nq, hdv)."""
+    if is_dtensor(q) or is_dtensor(k):
+        return heads_local(
+            lambda q, k, v, qp, kp, kv, _: masked_attention(
+                q, k, v, qp, kp, causal, window, kv),
+            q, (k, v), (q_pos, k_pos, k_valid))
     B, S, nq, hd = q.shape
     nkv, hdv = v.shape[2], v.shape[3]
     qpk = nq // nkv
@@ -370,15 +382,12 @@ def attn_prefill(cfg: ModelConfig, p: Attention, x, positions):
     positions = pos2d(positions)
     o = masked_attention(q, k, v, positions, positions, causal=True,
                          window=W)
-    B, S = x.shape[:2]
-    if W and S > W:
+    if W and x.shape[1] > W:
         slots = positions[:, -W:] % W
-        bidx = torch.arange(B, device=x.device)[:, None]
         ring_k, ring_v = torch.zeros_like(k[:, -W:]), torch.zeros_like(
             v[:, -W:])
-        ring_k[bidx, slots] = k[:, -W:]
-        ring_v[bidx, slots] = v[:, -W:]
-        k, v = ring_k, ring_v
+        k = write_rows(ring_k, slots, k[:, -W:])
+        v = write_rows(ring_v, slots, v[:, -W:])
     if _int8(cfg):
         k8, ks = _quantize_heads(k)
         v8, vs = _quantize_heads(v)
@@ -419,10 +428,27 @@ def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, W: int,
     W the cache is a ring: each slot is labelled with the latest position
     the newest query's ring puts there, and keys more than W back or never
     written are masked too.  Both cache layouts run this one function,
-    which is what makes paged and dense serving bit-identical."""
+    which is what makes paged and dense serving bit-identical.  On
+    DTensors each rank attends with its own heads and rows
+    (``sharding.local.heads_local``), and a sequence-sharded cache with
+    its own block of it."""
+    if is_dtensor(q) or is_dtensor(ck):
+        o = heads_local(
+            lambda q, ck, cv, a, cp: _extend_attn(q, ck, cv, a, W, cp),
+            q, (ck, cv), (abs_new,), context_parallel=True)
+    else:
+        o = _extend_attn(q, ck, cv, abs_new, W)
+    return _out(o.to(dt), p.w_o)
+
+
+def _extend_attn(q, ck, cv, abs_new, W: int, cp=None):
+    """``_extend_core``'s attention: q (B, L, nq, hd) -> float32 (B, L,
+    nq, hd).  ``cp`` (``ContextShards``): this rank holds slots
+    [offset, offset + Sc) of a cache of ``cp.total``; the softmax's max and
+    sum and the context are reduced over the ranks that share it."""
     B, L = abs_new.shape
     Sc = ck.shape[1]
-    nq, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    nq, nkv, hd = q.shape[2], ck.shape[2], q.shape[3]
     qpk = nq // nkv
     qg = q.reshape(B, L, nkv, qpk, hd)
     qs = (qg.float() * _inv_sqrt(hd, q.device)).to(ck.dtype)
@@ -432,9 +458,12 @@ def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, W: int,
     else:
         s = torch.einsum("blkgh,bskh->bkgls", qs.float(), ck.float())
     slot = torch.arange(Sc, device=ck.device)[None, :]        # (1, Sc)
+    total = Sc
+    if cp is not None:
+        slot, total = slot + cp.offset, cp.total
     if W:
         last = abs_new[:, -1:]
-        slot_abs = last - (last - slot) % Sc                  # (B, Sc)
+        slot_abs = last - (last - slot) % total               # (B, Sc)
     else:
         slot_abs = slot
     qpos = abs_new[:, None, None, :, None]                    # (B,1,1,L,1)
@@ -443,14 +472,20 @@ def _extend_core(cfg: ModelConfig, p: Attention, q, ck, cv, abs_new, W: int,
     if W:
         valid = valid & (kpos > qpos - W) & (kpos >= 0)
     s = torch.where(valid, s, NEG_INF)
-    prob = softmax(s).to(cv.dtype)
+    if cp is None:
+        prob = softmax(s).to(cv.dtype)
+    else:
+        e = torch.exp(s - cp.reduce(s.amax(-1, keepdim=True), "max"))
+        prob = (e / cp.reduce(e.sum(-1, keepdim=True), "sum")).to(cv.dtype)
     if cv.is_cuda:
         o = _cache_bmm(prob.reshape(B, nkv, qpk * L, Sc), cv,
                        transpose=False)
         o = o.view(B, nkv, qpk, L, hd).permute(0, 3, 1, 2, 4)
     else:
         o = torch.einsum("bkgls,bskh->blkgh", prob.float(), cv.float())
-    return _out(o.reshape(B, L, nq, hd).to(dt), p.w_o)
+    if cp is not None:
+        o = cp.reduce(o.contiguous(), "sum")
+    return o.reshape(B, L, nq, hd)
 
 
 def attn_extend(cfg: ModelConfig, p: Attention, x, positions, cache, pos):
@@ -464,23 +499,21 @@ def attn_extend(cfg: ModelConfig, p: Attention, x, positions, cache, pos):
     if "page_table" in cache:
         return _attn_extend_paged(cfg, p, x, positions, cache, pos)
     q, k, v = _qkv(cfg, p, x, positions)
-    B, L = x.shape[:2]
+    L = x.shape[1]
     W = window(cfg)
     abs_new = pos[:, None] + torch.arange(L, device=x.device)[None, :]
     slot = abs_new % cache["k"].shape[1] if W else abs_new
-    bidx = torch.arange(B, device=x.device)[:, None]
     if "k_scale" in cache:
         k8, ks = _quantize_heads(k)
         v8, vs = _quantize_heads(v)
-        cache["k"][bidx, slot] = k8
-        cache["v"][bidx, slot] = v8
-        cache["k_scale"][bidx, slot] = ks
-        cache["v_scale"][bidx, slot] = vs
+        for name, vals in (("k", k8), ("v", v8), ("k_scale", ks),
+                           ("v_scale", vs)):
+            write_rows(cache[name], slot, vals)
         ck = _dequantize(cache["k"], cache["k_scale"])
         cv = _dequantize(cache["v"], cache["v_scale"])
     else:
-        cache["k"][bidx, slot] = k.to(cache["k"].dtype)
-        cache["v"][bidx, slot] = v.to(cache["v"].dtype)
+        write_rows(cache["k"], slot, k)
+        write_rows(cache["v"], slot, v)
         ck, cv = cache["k"], cache["v"]
     return _extend_core(cfg, p, q, ck, cv, abs_new, W, x.dtype), cache
 
@@ -568,30 +601,43 @@ def mla_extend(cfg: ModelConfig, p: MLA, x, positions, cache, pos):
     cache-dtype operands into float32, the context float32 from
     cache-dtype probabilities, W_uv in float32."""
     dt = x.dtype
-    B, L = x.shape[:2]
-    nq, rank = cfg.n_heads, cfg.kv_lora_rank
+    L = x.shape[1]
     q_nope, q_rope = _mla_q(cfg, p, x, positions)            # (B, L, nq, ·)
     latent_t, k_rope_t = _mla_latent(cfg, p, x, positions)
     abs_new = pos[:, None] + torch.arange(L, device=x.device)[None, :]
-    bidx = torch.arange(B, device=x.device)[:, None]
-    clat, crope = cache["latent"], cache["k_rope"]
-    clat[bidx, abs_new] = latent_t.to(clat.dtype)
-    crope[bidx, abs_new] = k_rope_t.to(crope.dtype)
+    clat = write_rows(cache["latent"], abs_new, latent_t)
+    crope = write_rows(cache["k_rope"], abs_new, k_rope_t)
     scale = _inv_sqrt(cfg.head_dim + cfg.rope_head_dim, x.device)
     q_lat = torch.einsum("blnh,rnh->blnr", q_nope.float(), p.w_uk.float())
-    s = _latent_bmm(q_lat.to(clat.dtype).reshape(B, L * nq, rank), clat,
+    # the absorbed query and the rope query, in the caches' dtype, as one
+    # (B, L, nq, rank + rhd) tensor
+    qcat = torch.cat([q_lat.to(clat.dtype), q_rope.to(crope.dtype)], -1)
+    if is_dtensor(qcat) or is_dtensor(clat):
+        ctx = heads_local(
+            lambda q, cl, cr, a, _: _mla_attn(q, cl, cr, a, scale),
+            qcat, (clat, crope), (abs_new,))
+    else:
+        ctx = _mla_attn(qcat, clat, crope, abs_new, scale)
+    o = torch.einsum("blnr,rnh->blnh", ctx, p.w_uv.float())
+    return _out(o.to(dt), p.w_o), cache
+
+
+def _mla_attn(qcat, clat, crope, abs_new, scale):
+    """``mla_extend``'s attention in latent space: qcat (B, L, nq, rank +
+    rhd) against the latent (B, Sc, rank) and rope-key (B, Sc, rhd)
+    caches -> the float32 context (B, L, nq, rank)."""
+    B, L, nq = qcat.shape[:3]
+    rank, Sc = clat.shape[2], clat.shape[1]
+    s = _latent_bmm(qcat[..., :rank].reshape(B, L * nq, rank), clat,
                     transpose=True)
-    s = s + _latent_bmm(q_rope.to(crope.dtype).reshape(B, L * nq, -1),
-                        crope, transpose=True)
-    Sc = clat.shape[1]
+    s = s + _latent_bmm(qcat[..., rank:].reshape(B, L * nq, -1), crope,
+                        transpose=True)
     s = (s * scale).view(B, L, nq, Sc)
-    valid = torch.arange(Sc, device=x.device)[None, None, None, :] <= \
+    valid = torch.arange(Sc, device=clat.device)[None, None, None, :] <= \
         abs_new[:, :, None, None]                             # (B, L, 1, Sc)
     prob = softmax(torch.where(valid, s, NEG_INF)).to(clat.dtype)
     ctx = _latent_bmm(prob.reshape(B, L * nq, Sc), clat, transpose=False)
-    o = torch.einsum("blnr,rnh->blnh", ctx.view(B, L, nq, rank),
-                     p.w_uv.float())
-    return _out(o.to(dt), p.w_o), cache
+    return ctx.view(B, L, nq, rank)
 
 
 # ----------------------------------------------------------------------
@@ -626,7 +672,11 @@ def cross_attend(cfg: ModelConfig, p: Attention, x, kv, enc_valid=None):
     q = _proj(x, p.w_q)
     k, v = kv["k"], kv["v"]
     if k.is_cuda and not torch.is_grad_enabled():
-        o = _cross_in_place(q, k, v, enc_valid)
+        if is_dtensor(q) or is_dtensor(k):
+            o = heads_local(lambda q, k, v, ev, _: _cross_in_place(q, k, v, ev),
+                            q, (k, v), (enc_valid,))
+        else:
+            o = _cross_in_place(q, k, v, enc_valid)
     else:
         B, S = x.shape[:2]
         qpos = torch.zeros((B, S), dtype=torch.int64, device=x.device)

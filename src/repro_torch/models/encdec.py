@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.sharding.local import settled
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import MLP, param, rmsnorm
@@ -51,6 +52,6 @@ def encode(enc: Encoder, embeds, valid=None):
         q, k, v = (attn._proj(h, w) for w in (a.w_q, a.w_k, a.w_v))
         o = attn.masked_attention(q, k, v, pos, pos, causal=False,
                                   k_valid=valid)
-        x = x + attn._out(o, a.w_o)
-        x = x + lyr.mlp(rmsnorm(x, lyr.norm2, cfg.rms_eps))
+        x = x + settled(attn._out(o, a.w_o))
+        x = x + settled(lyr.mlp(rmsnorm(x, lyr.norm2, cfg.rms_eps)))
     return x

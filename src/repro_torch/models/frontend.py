@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
+
 
 def audio_frame_embeds(generator: torch.Generator, batch: int,
                        n_frames: int, d_model: int, dtype=torch.float32):
@@ -23,19 +25,19 @@ def audio_frame_embeds(generator: torch.Generator, batch: int,
 
 
 def vision_patch_positions(batch: int, n_patches: int, grid_h: int,
-                           grid_w: int, device="cpu"):
+                           grid_w: int, device="cuda"):
     """M-RoPE position ids of a (grid_h x grid_w) patch grid: (3, batch,
     n_patches) int64 (t, h, w), t 0, patch i at row (i // grid_w) %
     grid_h, column i % grid_w."""
-    idx = torch.arange(n_patches, device=device)
+    idx = torch.arange(n_patches, device=resolve_device(device))
     pos = torch.stack([torch.zeros_like(idx), (idx // grid_w) % grid_h,
                        idx % grid_w])                       # (3, n_patches)
     return pos[:, None, :].expand(3, batch, n_patches)
 
 
 def mrope_text_positions(batch: int, seq: int, start: int = 0,
-                         device="cpu"):
+                         device="cuda"):
     """Text positions start, start + 1, ... with t == h == w: (3, batch,
     seq) int64."""
-    p = start + torch.arange(seq, device=device)
+    p = start + torch.arange(seq, device=resolve_device(device))
     return p[None, None].expand(3, batch, seq)

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.local import embedding_rows, is_dtensor
 
 
 def compute_dtype(cfg: ModelConfig):
@@ -77,9 +78,8 @@ def apply_mrope(x, positions3, sections, theta: float):
     half = hd // 2
     assert sum(sections) == half, (sections, half)
     freqs = rope_freqs(hd, theta, x.device)                  # (half,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))             # (half,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)  # (half,)
     pos = positions3.float()[sec_id].movedim(0, -1)          # (B, S, half)
     return _rotate(x, pos * freqs)
 
@@ -107,17 +107,24 @@ class MLP(nn.Module):
         self.w_down = param(d_ff, d_model, dtype=dtype, device=device)
 
     def forward(self, x):
-        dt = x.dtype
-        g = x @ self.w_gate.to(dt)
-        u = x @ self.w_up.to(dt)
-        return (torch.nn.functional.silu(g.float()).to(dt) * u) @ \
-            self.w_down.to(dt)
+        return mlp_apply(x, self.w_gate, self.w_up, self.w_down)
+
+
+def mlp_apply(x, w_gate, w_up, w_down):
+    dt = x.dtype
+    g = x @ w_gate.to(dt)
+    u = x @ w_up.to(dt)
+    return (torch.nn.functional.silu(g.float()).to(dt) * u) @ w_down.to(dt)
 
 
 # ----------------------------------------------------------------------
 # Embedding / LM head
 # ----------------------------------------------------------------------
 def embed_apply(embedding, tokens, dtype):
+    """On a DTensor table each rank looks up its block of the vocabulary
+    (``sharding.local.embedding_rows``)."""
+    if is_dtensor(embedding):
+        return embedding_rows(embedding, tokens, dtype)
     return embedding[tokens].to(dtype)
 
 

@@ -70,6 +70,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import encdec, ssm
 from repro_torch.models.layers import (compute_dtype, embed_apply,
                                        lm_head_apply, param, rmsnorm)
+from repro_torch.sharding import act_sharding as _act
+from repro_torch.sharding.local import (argmax_last, gathered_over_data,
+                                       log_softmax_last, take_last)
 from repro_torch.models.transformer import (CROSS_LEAVES, SEQ_BLOCKS,
                                            apply_train, check_supported,
                                            layer_kinds, make_layers)
@@ -153,16 +156,24 @@ def train_loss(model: Transformer, batch, remat: bool = True):
     labels = tokens[:, 1:].long()
     x, aux = _stack(model, tokens[:, :-1], batch.get("positions"),
                     batch.get("enc_embeds"), remat=remat)
-    logits = model.head(x)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels[..., None])[..., 0]
+    if _act.AXES is not None:
+        x = _act.constrain(x, _act.AXES.dp, None, None)
+    with gathered_over_data(model, ("lm_head", "final_norm")):
+        logits = model.head(x)
+    if _act.AXES is not None:
+        # logits (B, S, V): batch over data, vocab over model, so the
+        # float32 logits stay sharded through the cross entropy
+        logits = _act.constrain(logits, _act.AXES.dp, None,
+                                _act.AXES.model)
+    logp = log_softmax_last(logits)
+    nll = -take_last(logp, labels)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(nll)
     denom = mask.sum().clamp_min(1.0)
     ce = (nll * mask).sum() / denom
     # argmax ties go to the first index, in torch as in jnp
-    acc = ((logits.argmax(-1) == labels) * mask).sum() / denom
+    acc = ((argmax_last(logits) == labels) * mask).sum() / denom
     return ce + aux, {"ce": ce, "aux": aux, "accuracy": acc}
 
 

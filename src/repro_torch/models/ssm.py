@@ -40,6 +40,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import param, rmsnorm
+from repro_torch.sharding.local import (as_dtensor, contiguous_grad,
+                                       is_dtensor, laid_out_as)
 
 MAMBA_CHUNK = 256
 F32 = torch.float32
@@ -455,6 +457,10 @@ def seq(cfg: ModelConfig, block_type: str, p, x, state=None,
         collect_traj: bool = False):
     """The serve-mode sequence form of a stateful mixer: (out, state,
     trajectory), the trajectory None without ``collect_traj``."""
+    if _on_dtensors(p, x):
+        if collect_traj:
+            raise NotImplementedError("state trajectories on DTensors")
+        return (*_sharded(cfg, block_type, p, x, state), None)
     fn = {"mamba": mamba_seq, "mlstm": mlstm_seq_recurrent,
           "slstm": slstm_seq}[block_type]
     out = fn(cfg, p, x, state=state, return_state=True,
@@ -465,8 +471,73 @@ def seq(cfg: ModelConfig, block_type: str, p, x, state=None,
 def train_seq(cfg: ModelConfig, block_type: str, p, x):
     """The train-mode form: Mamba's scan without state, mLSTM's parallel
     form, sLSTM's recurrence."""
+    if _on_dtensors(p, x):
+        return _sharded(cfg, block_type, p, x, None, train=True)
     if block_type == "mamba":
         return mamba_seq(cfg, p, x)
     if block_type == "mlstm":
         return mlstm_parallel(cfg, p, x)
     return slstm_seq(cfg, p, x)
+
+
+def _on_dtensors(p, x) -> bool:
+    return is_dtensor(x) or (isinstance(p, nn.Module) and
+                             is_dtensor(next(p.parameters())))
+
+
+def _sharded(cfg: ModelConfig, block_type: str, p, x, state, train=False):
+    """A stateful mixer on DTensors, per rank through ``local_map``: the
+    rows sharded over the data axes where they divide, the layer's
+    weights gathered over ``model`` (the all-gather DTensor issues, as
+    FSDP gathers a layer: the mixers' recurrences are not split over
+    channels here) and the state likewise, the new state handed back in
+    the cache's own placements (a local slice).  Returns out (train) or
+    (out, state)."""
+    import types
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    names = [n for n, _ in p.named_parameters(recurse=False)]
+    prms = [getattr(p, n) for n in names]
+    mesh = next(t for t in (x, *prms) if is_dtensor(t)).device_mesh
+    dp_size = mesh.size() // mesh.size(list(mesh.mesh_dim_names).index(
+        "model"))
+    rows = Shard(0) if x.shape[0] % dp_size == 0 else Replicate()
+    # activations and states: the rows over the data axes, whole over
+    # ``model``
+    row_pl = [Replicate() if n == "model" else rows
+              for n in mesh.mesh_dim_names]
+    keys = sorted(state) if state is not None else []
+    sts = [as_dtensor(state[k], mesh) for k in keys]
+    args = [as_dtensor(x, mesh), *(as_dtensor(t, mesh) for t in prms), *sts]
+    in_pl = [row_pl] + [[Replicate()] * mesh.ndim] * len(prms) + \
+        [row_pl] * len(sts)
+    n_p = len(prms)
+
+    def local(xl, *rest):
+        xl = contiguous_grad(xl)
+        pn = types.SimpleNamespace(**dict(zip(names, rest[:n_p])))
+        st = dict(zip(keys, rest[n_p:])) or None
+        if train:
+            return train_seq(cfg, block_type, pn, xl)
+        out, new, _ = seq(cfg, block_type, pn, xl, st)
+        return (out, *(new[k] for k in sorted(new)))
+
+    if train:
+        # each rank's weight gradient is over its rows: partial over the
+        # data axes that split them
+        w_grad = [Partial() if n != "model" and rows.is_shard() else
+                  Replicate() for n in mesh.mesh_dim_names]
+        return local_map(local, out_placements=row_pl, in_placements=tuple(
+            in_pl), in_grad_placements=(row_pl, *([w_grad] * n_p)),
+            device_mesh=mesh, redistribute_inputs=True)(*args)
+    new_keys = keys or sorted(make_state(cfg, block_type, 1, x.dtype,
+                                         "meta"))
+    outs = local_map(local, out_placements=(row_pl,) * (1 + len(new_keys)),
+                     in_placements=tuple(in_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+    new = dict(zip(new_keys, outs[1:]))
+    if state is not None:
+        new = {k: laid_out_as(v, state[k]) if is_dtensor(state[k]) else v
+               for k, v in new.items()}
+    return outs[0], new

@@ -24,6 +24,8 @@ prefill from the layer's cross K/V, in extend from the K/V cached beside
 the layer's own KV (``CROSS_LEAVES``), which extend only reads."""
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -33,6 +35,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import MLP, param, rmsnorm
 from repro_torch.models.moe import MoE
+from repro_torch.sharding import act_sharding
+from repro_torch.sharding.local import (gathered_over_data, is_dtensor,
+                                       settled)
 
 SEQ_BLOCKS = tuple(ssm.MIXERS)
 # an encoder-decoder layer's cached cross K/V, beside its own KV leaves
@@ -84,15 +89,14 @@ class Block(nn.Module):
             a = attn.mla_full(self.cfg, self.attn, h, positions)
         else:
             a = attn.attn_full(self.cfg, self.attn, h, positions)
-        x = x + a
+        x = x + settled(a)
         if enc_out is not None:
             x = self._cross(x, attn.cross_kv(self.cfg, self.cross, enc_out))
         if self.moe is None:
             return self._ffn(x), torch.zeros((), device=x.device)
-        h = rmsnorm(x, self.norm2, self.cfg.rms_eps)
-        B, S, D = h.shape
-        y, aux = self.moe.tokens(h.reshape(B * S, D), dropless)
-        return x + y.reshape(B, S, D), aux
+        y, aux = self.moe.mix(rmsnorm(x, self.norm2, self.cfg.rms_eps),
+                              dropless)
+        return x + settled(y), aux
 
     def prefill(self, x, positions, cross_kv=None):
         """Returns (x, cache leaves): the prompt's {"k", "v"} (MLA:
@@ -106,7 +110,7 @@ class Block(nn.Module):
                                  return_cache=True)
         else:
             a, c = attn.attn_prefill(self.cfg, self.attn, h, positions)
-        x = x + a
+        x = x + settled(a)
         if cross_kv is not None:
             x = self._cross(x, cross_kv)
         return self._ffn(x), c
@@ -127,7 +131,7 @@ class Block(nn.Module):
         else:
             a, _ = attn.attn_extend(self.cfg, self.attn, h, positions, cache,
                                     pos)
-        x = x + a
+        x = x + settled(a)
         if self.cross is not None and "cross_k" in cache:
             x = self._cross(x, {"k": cache["cross_k"],
                                 "v": cache["cross_v"]})
@@ -135,13 +139,13 @@ class Block(nn.Module):
 
     def _cross(self, x, kv):
         hx = rmsnorm(x, self.norm_x, self.cfg.rms_eps)
-        return x + attn.cross_attend(self.cfg, self.cross, hx, kv)
+        return x + settled(attn.cross_attend(self.cfg, self.cross, hx, kv))
 
     def _ffn(self, x):
         if self.norm2 is None:
             return x
         ffn = self.mlp if self.moe is None else self.moe
-        return x + ffn(rmsnorm(x, self.norm2, self.cfg.rms_eps))
+        return x + settled(ffn(rmsnorm(x, self.norm2, self.cfg.rms_eps)))
 
 
 def layer_kinds(cfg: ModelConfig):
@@ -168,13 +172,23 @@ def apply_train(layers, x, positions, remat: bool = True,
     aux = torch.zeros((), device=x.device)
     for i, blk in enumerate(layers):
         eo = enc_out if i >= n_prefix else None
+        x = act_sharding.residual_constraint(x)
+        fwd = blk.train_forward
+        if is_dtensor(blk.norm1):
+            # FSDP gathers a layer's weights at use, again in the recompute
+            fwd = functools.partial(_gathered_forward, blk)
         if remat and torch.is_grad_enabled():
-            x, a = checkpoint(blk.train_forward, x, positions, dropless, eo,
+            x, a = checkpoint(fwd, x, positions, dropless, eo,
                               use_reentrant=False)
         else:
-            x, a = blk.train_forward(x, positions, dropless, eo)
+            x, a = fwd(x, positions, dropless, eo)
         aux = aux + a
     return x, aux
+
+
+def _gathered_forward(blk, *args):
+    with gathered_over_data(blk):
+        return blk.train_forward(*args)
 
 
 def check_supported(cfg: ModelConfig):

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from repro_torch.sharding.local import local_of, replicated
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -78,7 +80,7 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, decay):
     state, metrics)."""
     dev = params[0].device
     step = state["step"] + 1
-    gn = global_norm(grads)
+    gn = replicated(global_norm(grads))
     scale = torch.minimum(_f32(1.0, dev), _f32(cfg.grad_clip, dev)
                           / torch.maximum(gn, _f32(1e-9, dev)))
     lr = schedule(cfg, step)
@@ -86,27 +88,33 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, decay):
     c1 = _f32(1.0, dev) - torch.pow(_f32(cfg.b1, dev), stepf)
     c2 = _f32(1.0, dev) - torch.pow(_f32(cfg.b2, dev), stepf)
     b1, b2 = _f32(cfg.b1, dev), _f32(cfg.b2, dev)
+    # on DTensors every tensor of the update is laid out as its parameter
+    # and the scalars are replicated, so each rank updates its own shards:
+    # the multi-tensor ops run on the local tensors, in place
+    params_l, m_l, v_l, grads_l = ([local_of(t) for t in x] for x in (
+        params, state["m"], state["v"], grads))
+    scale_l, lr_l, c1_l, c2_l = (local_of(t) for t in (scale, lr, c1, c2))
     # per element: m = b1 m + (1 - b1) g and v = b2 v + (1 - b2) g^2 as
     # scaled adds, delta = (m / c1) / (sqrt(v / c2) + eps) (+ wd p), then
     # p - lr delta; one multi-tensor kernel an operation over a group
     for i in range(0, len(params), GROUP):
-        p, m, v = (x[i:i + GROUP] for x in (params, state["m"], state["v"]))
-        g = torch._foreach_mul([x.float() for x in grads[i:i + GROUP]],
-                               scale)
+        p, m, v = (x[i:i + GROUP] for x in (params_l, m_l, v_l))
+        g = torch._foreach_mul([x.float() for x in grads_l[i:i + GROUP]],
+                               scale_l)
         torch._foreach_mul_(m, b1)
         torch._foreach_add_(m, g, alpha=1 - cfg.b1)
         torch._foreach_mul_(v, b2)
         torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
-        den = torch._foreach_div(v, c2)
+        den = torch._foreach_div(v, c2_l)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, cfg.eps)
-        delta = torch._foreach_div(m, c1)
+        delta = torch._foreach_div(m, c1_l)
         torch._foreach_div_(delta, den)
         dec = [j for j in range(len(p)) if decay[i + j]]
         if dec:
             torch._foreach_add_([delta[j] for j in dec], [p[j] for j in dec],
                                 alpha=cfg.weight_decay)
-        torch._foreach_mul_(delta, lr)
+        torch._foreach_mul_(delta, lr_l)
         torch._foreach_sub_(p, delta)
     state["step"] = step
     return params, state, {"grad_norm": gn, "lr": lr}

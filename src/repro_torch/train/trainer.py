@@ -8,6 +8,7 @@ import torch
 from repro_torch.bridge import leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_mod
+from repro_torch.sharding.local import laid_out_as
 from repro_torch.train import optimizer as opt_mod
 
 
@@ -58,7 +59,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: opt_mod.AdamWConfig,
             loss.backward()                 # accumulates into .grad
             losses.append(loss.detach())
             metrics.append({k: v.detach() for k, v in mets.items()})
-        grads = [prm.grad for prm in params]
+        # DTensor gradients come back partial over the data axes: summed
+        # into the parameters' layout here (a no-op on plain tensors)
+        grads = [laid_out_as(prm.grad, prm) for prm in params]
         if microbatches == 1:
             loss, metrics = losses[0], metrics[0]
         else:

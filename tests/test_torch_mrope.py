@@ -124,11 +124,11 @@ def test_text_only_mrope_is_plain_rope():
 @pytest.mark.parametrize("B,n,gh,gw,start", [(2, 12, 3, 4, 0),
                                              (3, 40, 5, 6, 7)])
 def test_frontend_positions_equal_reference(B, n, gh, gw, start):
-    got = tfrontend.vision_patch_positions(B, n, gh, gw)
+    got = tfrontend.vision_patch_positions(B, n, gh, gw, device="cpu")
     ref = np.asarray(jfrontend.vision_patch_positions(B, n, gh, gw))
     assert got.shape == ref.shape == (3, B, n)
     np.testing.assert_array_equal(got.numpy(), ref)
-    got = tfrontend.mrope_text_positions(B, n, start=start)
+    got = tfrontend.mrope_text_positions(B, n, start=start, device="cpu")
     ref = np.asarray(jfrontend.mrope_text_positions(B, n, start=start))
     np.testing.assert_array_equal(got.numpy(), ref)
 
@@ -215,12 +215,26 @@ def test_forward_logits_and_train_loss_with_positions():
     _assert_tree_close(grads, rg, GRAD_RTOL, scale_floor=1.0, what="grads")
 
 
+def test_frontend_positions_default_to_the_card():
+    """Like every entry point of the port, the position helpers run on
+    the card unless asked for the CPU: without one, a call that does not
+    name a device raises."""
+    if torch.cuda.is_available():
+        got = tfrontend.mrope_text_positions(2, 12)
+        assert got.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA requested"):
+        tfrontend.vision_patch_positions(2, 12, 3, 4)
+    with pytest.raises(RuntimeError, match="CUDA requested"):
+        tfrontend.mrope_text_positions(2, 12)
+
+
 def test_trainer_refuses_to_split_3d_positions():
     _, tc = _cfgs(draft=True)
     model = bridge.seeded_model(tc, 0, "cpu", trainable=True)
     toks = torch.randint(0, tc.vocab, (4, 9),
                          generator=torch.Generator().manual_seed(0))
-    pos3 = tfrontend.mrope_text_positions(4, 8)
+    pos3 = tfrontend.mrope_text_positions(4, 8, device="cpu")
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
     state = init_state(ttrainer.parameters(model))
     step2 = ttrainer.make_train_step(tc, opt, microbatches=2)
