@@ -146,17 +146,27 @@ Phases:
      (``repro_torch.launch.dryrun.run_combo``: the port's model on the
      meta device, DTensor parameters by the ``Partitioner``, one step of
      rank 0 of the 16 x 16 production mesh, a fake process group of 256
-     ranks, fake cuda tensors) for ``qwen2.5-3b`` x decode_32k,
+     ranks, fake cuda tensors; begun after phase 1 in DRY_RUN_WORKERS
+     processes of its own, on the host's CPU beside phases 2-14, and
+     read here) for ``qwen2.5-3b`` x decode_32k,
      ``qwen2-moe-a2.7b`` x prefill_32k with MoE dispatch groups,
-     ``xlstm-1.3b`` x long_500k and ``granite-3-8b`` x train_4k, each
-     ``ok``, with its peak a device, FLOPs, collective bytes by kind and
-     trace seconds; (b) rank 0 of the same mesh for real on the card
-     (``dryrun.run_rank0``) for each combo whose dry-run peak is at most
-     RANK0_MAX_PEAK: real local shards from a seeded generator, no-op
-     collectives, the rise of ``max_memory_allocated`` against the dry
-     run's peak (their ratio within RANK0_MEM_RATIO), the FLOP count
-     equal to the dry run's, and the local step's time by CUDA events
-     (compute without communication); (c) ``examples/torch_quickstart.py``
+     ``xlstm-1.3b`` x long_500k, ``granite-3-8b`` x train_4k,
+     ``qwen2.5-3b`` x train_4k (the vocab-parallel cross entropy: its
+     peak at most TRAIN_MAX_PEAK), ``jamba-1.5-large-398b`` x decode_32k
+     (the Mamba mixers on their shard) and ``xlstm-1.3b`` x prefill_32k
+     by the calibrated count (``calibrate=True``), each ``ok``, with its
+     peak a device, FLOPs, collective bytes by kind and trace seconds,
+     no SSM combo gathering a mixer projection or a state whole
+     (``whole_mixer_gathers`` 0) and xlstm's decode moving at most
+     SSM_DECODE_MAX_COLL bytes of collectives; (b) rank 0 of the same
+     mesh for real on the card (``dryrun.run_rank0``) for each combo
+     traced whole whose dry-run peak is at most RANK0_MAX_PEAK: real
+     local shards from a seeded generator, no-op collectives, the rise
+     of ``max_memory_allocated`` against the dry run's peak (their ratio
+     within RANK0_MEM_RATIO), the FLOP count and the collectives by kind
+     equal to the dry run's, no whole mixer gather, and the local step's
+     time by CUDA events (compute without communication); (c)
+     ``examples/torch_quickstart.py``
      in process (both SQS kernels launched) and
      ``examples/torch_train_draft_slm.py --steps 4`` as a child process.
 
@@ -3097,35 +3107,70 @@ def phase_encdec_mrope(dev):
     return launches
 
 
-# phase 15: the dry-run combos, the largest dry-run peak that rank 0 runs
-# for real on the card, and the bound on measured / predicted memory
-TOOLING_COMBOS = (("qwen2.5-3b", "decode_32k", {}),
+# phase 15: the dry-run combos (arch, shape, levers, calibrated count),
+# the largest dry-run peak that rank 0 runs for real on the card, the
+# bound on measured / predicted memory, qwen2.5-3b's train peak with the
+# vocab-parallel cross entropy (40 GiB; the reference records 33.1) and
+# what xlstm's decode may move (0.25 GiB; the reference records 0.0)
+TOOLING_COMBOS = (("qwen2.5-3b", "decode_32k", {}, False),
                   ("qwen2-moe-a2.7b", "prefill_32k",
-                   {"shard_acts": True, "moe_groups": True}),
-                  ("xlstm-1.3b", "long_500k", {}),
-                  ("granite-3-8b", "train_4k", {}))
+                   {"shard_acts": True, "moe_groups": True}, False),
+                  ("xlstm-1.3b", "long_500k", {}, False),
+                  ("granite-3-8b", "train_4k", {}, False),
+                  ("qwen2.5-3b", "train_4k", {}, False),
+                  ("jamba-1.5-large-398b", "decode_32k", {}, False),
+                  ("xlstm-1.3b", "prefill_32k", {}, True))
 RANK0_MAX_PEAK = 70e9
 RANK0_MEM_RATIO = (0.85, 1.15)
+TRAIN_MAX_PEAK = 40 * 2**30
+SSM_DECODE_MAX_COLL = 0.25 * 2**30
+SSM_ARCHS = ("xlstm-1.3b", "jamba-1.5-large-398b")
+DRY_RUN_WORKERS = 2
 
 
-def phase_tooling(dev):
-    """Phase 15: the dry run, rank 0 for real, the two examples.  Returns
-    the SQS launches of the quickstart."""
+def start_dry_runs():
+    """Phase 15 (a)'s dry runs, begun after phase 1 in DRY_RUN_WORKERS
+    processes of their own: they trace on the host's CPU (fake tensors, a
+    fake process group) while the card runs phases 2-14.  Returns (the
+    pool, {(arch, shape): future of the record})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.launch import dryrun
+    pool = ProcessPoolExecutor(
+        DRY_RUN_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {(arch, shape): pool.submit(
+        dryrun.run_combo, arch, shape, device="cuda",
+        opts=dryrun.Options(**kw), calibrate=cal)
+        for arch, shape, kw, cal in TOOLING_COMBOS}
+
+
+def phase_tooling(dev, dry):
+    """Phase 15: the dry run (``dry``: ``start_dry_runs``'s futures), rank
+    0 for real, the two examples.  Returns the SQS launches of the
+    quickstart."""
     import importlib.util
     import torch
     from repro_torch.kernels import sqs_fused as k
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     print("phase 15 (a): dry run on the 16 x 16 production mesh (fake "
-          "group of 256 ranks, fake cuda tensors)")
+          "group of 256 ranks, fake cuda tensors; begun after phase 1 in "
+          f"{DRY_RUN_WORKERS} worker processes)")
     recs = {}
-    for arch, shape, kw in TOOLING_COMBOS:
-        rec = dryrun.run_combo(arch, shape, device="cuda",
-                               opts=dryrun.Options(**kw))
+    for arch, shape, kw, cal in TOOLING_COMBOS:
+        rec = dry[(arch, shape)].result()
         check(rec["status"] == "ok", f"dry run {arch} {shape}: "
               f"{rec['status']} {rec.get('error', rec.get('reason'))}\n"
               f"{rec.get('traceback', '')}")
         m, c = rec["memory"], rec["collectives"]
+        if cal:
+            sc = rec["scan_calibration"]
+            print(f"  {arch} x {shape}: calibrated count ("
+                  f"{rec['calibration_status']}), {sc['n_units']} units "
+                  "from traces of " + ", ".join(
+                      f"{k} ({v['trace_s']} s)" for k, v in sc.items()
+                      if isinstance(v, dict)) + ", the position loops' "
+                  "trips multiplied; the peak extrapolated")
         print(f"  {arch} x {shape} {kw or ''}: peak "
               f"{m['peak_per_device'] / 1e9:.3f} GB a device (arguments "
               f"{m['argument_bytes'] / 1e9:.3f}, outputs "
@@ -3136,17 +3181,33 @@ def phase_tooling(dev):
               f"{c['total_collective_bytes'] / 1e9:.4f} GB "
               + json.dumps({kd: [c['per_kind_count'][kd], v]
                             for kd, v in c['per_kind_bytes'].items()})
-              + f" [count, bytes]; trace {rec['trace_s']} s; levers "
-              f"{rec['levers']}")
+              + f" [count, bytes]; whole mixer gathers "
+              f"{c['whole_mixer_gathers']}; trace {rec['trace_s']} s; "
+              f"levers {rec['levers']}")
+        if arch in SSM_ARCHS:
+            check(c["whole_mixer_gathers"] == 0, f"dry run {arch} {shape}: "
+                  f"{c['whole_mixer_gathers']} whole mixer gathers")
+        if arch == "xlstm-1.3b" and shape != "prefill_32k":
+            check(c["total_collective_bytes"] <= SSM_DECODE_MAX_COLL,
+                  f"dry run {arch} {shape}: "
+                  f"{c['total_collective_bytes'] / 2**30:.3f} GiB of "
+                  "collectives")
+        if (arch, shape) == ("qwen2.5-3b", "train_4k"):
+            check(m["peak_per_device"] <= TRAIN_MAX_PEAK, f"dry run {arch} "
+                  f"{shape}: peak {m['peak_per_device'] / 2**30:.2f} GiB")
         recs[(arch, shape)] = rec
-    print(f"  phase 15 (a): {time.perf_counter() - t0:.1f} s")
+    print(f"  phase 15 (a): waited {time.perf_counter() - t0:.1f} s for "
+          "the dry runs")
     t1 = time.perf_counter()
     print("phase 15 (b): rank 0 of the same mesh for real on the card "
           "(collectives are no-ops: memory, FLOPs and shapes only)")
     n_real = 0
-    for arch, shape, kw in TOOLING_COMBOS:
+    for arch, shape, kw, cal in TOOLING_COMBOS:
         rec = recs[(arch, shape)]
         peak = rec["memory"]["peak_per_device"]
+        if cal:
+            print(f"  {arch} x {shape}: a calibrated count, not run")
+            continue
         if peak > RANK0_MAX_PEAK:
             print(f"  {arch} x {shape}: dry-run peak {peak / 1e9:.3f} GB > "
                   f"{RANK0_MAX_PEAK / 1e9:.0f} GB, not run")
@@ -3154,7 +3215,7 @@ def phase_tooling(dev):
         free_cuda()
         r = dryrun.run_rank0(arch, shape, device="cuda",
                              opts=dryrun.Options(**kw), seed=15,
-                             time_reps=3)
+                             time_reps=2)
         ratio = r["mem_rise"] / peak
         print(f"  {arch} x {shape}: max_memory_allocated rise "
               f"{r['mem_rise'] / 1e9:.3f} GB against the dry run's "
@@ -3175,6 +3236,8 @@ def phase_tooling(dev):
               f"rank 0 {arch} {shape}: collectives "
               f"{r['collectives']['per_kind_count']} != dry run "
               f"{rec['collectives']['per_kind_count']}")
+        check(r["collectives"]["whole_mixer_gathers"] == 0,
+              f"rank 0 {arch} {shape}: whole mixer gathers")
         n_real += 1
     check(n_real > 0, "phase 15 (b) ran no combo")
     free_cuda()
@@ -3235,6 +3298,15 @@ def main():
     print("phase 1: built " + ", ".join(os.path.relpath(lib, HERE)
                                        for lib in libs)
           + f" in {time.perf_counter() - t0:.1f} s")
+    dry_pool, dry = start_dry_runs()
+    try:
+        return run_phases(torch, t_start, smi, dry)
+    finally:
+        dry_pool.shutdown(cancel_futures=True)
+
+
+def run_phases(torch, t_start, smi, dry):
+    """Phases 2-15 and the closing lines."""
     phase_kernels()
     phase_kernels_vocabularies()
     phase_decode_kernels()
@@ -3275,7 +3347,7 @@ def main():
     check(all(n > 0 for n in vl_launches.values()), "phase 14 never "
           f"launched a kernel: {vl_launches}")
     free_cuda()
-    tool_launches = phase_tooling(dev)
+    tool_launches = phase_tooling(dev, dry)
     for r in rows:
         r["launches"] += (tcp_launches.get(r["name"], 0)
                           + moe_launches.get(r["name"], 0)

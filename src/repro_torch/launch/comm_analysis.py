@@ -8,8 +8,11 @@ collectives themselves, as they are dispatched.  DTensor lowers every
 redistribution, and ``local_map`` code every explicit collective, to the
 c10d functional ops (``_c10d_functional.all_reduce``,
 ``all_gather_into_tensor``, ...), which reach a ``TorchDispatchMode`` on
-each rank's local tensors.  The layers are a Python loop, so every trip
-is dispatched and nothing is multiplied.
+each rank's local tensors.  The layers and the SSM mixers' position
+loops are Python loops, so every trip is dispatched; a calibrated count
+(``launch.dryrun.calibrated_counts``) dispatches two trips of a position
+loop (four with gradients) and multiplies, and traces two layer counts and
+extrapolates, as the reference's ``--calibrate`` does for XLA's scans.
 
 ``DeviceCostMode`` sees one rank's program: it lets DTensor desugar each
 of its ops (returning ``NotImplemented`` for DTensor arguments, as
@@ -30,7 +33,8 @@ of its ops (returning ``NotImplemented`` for DTensor arguments, as
                    reference's names (all-reduce, all-gather,
                    reduce-scatter, all-to-all, collective-permute), and
                    its result bytes, summed as ``hlo_analysis._shape_bytes``
-                   sums result shapes.
+                   sums result shapes; and every all-gather's result
+                   shape (``gathered``).
 
 On a fake process group the collectives move nothing and return
 uninitialised data; their kinds and sizes are the real program's.  A
@@ -39,6 +43,7 @@ CPU group has no all-to-all, so DTensor falls back to all-gather there
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import weakref
@@ -76,6 +81,14 @@ def collective_kind(func):
     return _KINDS.get(packet.__name__)
 
 
+def storage_bytes(t) -> int:
+    """The bytes ``DeviceCostMode`` counts for a new storage like t's: its
+    size, rounded up to the CUDA caching allocator's 512 B blocks on a
+    card."""
+    n = t.untyped_storage().nbytes()
+    return -(-n // 512) * 512 if t.device.type == "cuda" else n
+
+
 def _tensor_bytes(t) -> int:
     return t.numel() * t.element_size()
 
@@ -83,6 +96,55 @@ def _tensor_bytes(t) -> int:
 def _bytes(tree) -> int:
     return sum(_tensor_bytes(t) for t in tree_flatten(tree)[0]
                if isinstance(t, torch.Tensor))
+
+
+class _BackwardTrip:
+    """``DeviceCostMode.repeat_backward``: hooks on two states a position
+    loop hands on, mark at the later one's gradient, add (and drop the
+    stand-in) at the earlier one's."""
+
+    def __init__(self, mode, times):
+        self.mode, self.times, self.mark, self.kept = mode, times, None, None
+
+    def keep(self, nbytes: int):
+        """The stand-in, from now on.  Under a checkpoint the forward saves
+        nothing (``nbytes`` 0), and the recompute, inside the backward,
+        leaves its stand-in to the forward's loop, whose hooks fire."""
+        if nbytes <= 0:
+            return
+        with self.mode.uncounted():
+            lump = torch.empty(nbytes, dtype=torch.uint8)
+        if torch._C._current_graph_task_id() != -1:
+            self.mode._recomputed = lump
+        else:
+            self.kept = lump
+
+    @staticmethod
+    def _when_all(tree, fire):
+        from torch.utils._pytree import tree_flatten
+        ts = [t for t in tree_flatten(tree)[0] if t.requires_grad]
+        left = [len(ts)]
+
+        def hook(g):
+            left[0] -= 1
+            if left[0] == 0:
+                fire()
+        for t in ts:
+            t.register_hook(hook)
+
+    def starts_at(self, state):
+        def fire():
+            self.mark = self.mode.counts()
+            if self.kept is None:
+                self.kept, self.mode._recomputed = \
+                    self.mode._recomputed, None
+        self._when_all(state, fire)
+
+    def ends_at(self, state):
+        def fire():
+            self.mode.add(self.mode.since(self.mark), self.times)
+            self.kept = None
+        self._when_all(state, fire)
 
 
 @dataclasses.dataclass
@@ -111,9 +173,13 @@ class DeviceCostMode(TorchDispatchMode):
         self.bytes_accessed = 0
         self.live = self.peak = 0
         self._seen = weakref.WeakSet()
+        self._waited = weakref.WeakKeyDictionary()
         self.coll_bytes = defaultdict(int)
         self.coll_count = defaultdict(int)
+        self.gathered = []          # every all-gather's result shape
         self._shape_only = 0
+        self._uncounted = 0
+        self._recomputed = None     # a recomputed loop's stand-in
         self._unpatch = []          # re-entered to decompose ops: a stack
 
     def __enter__(self):
@@ -149,15 +215,32 @@ class DeviceCostMode(TorchDispatchMode):
         if self._shape_only:
             return func(*args, **kwargs)
         from torch.distributed.tensor import DTensor
+        if self._uncounted and not any(issubclass(t, DTensor)
+                                       for t in types):
+            out = func(*args, **kwargs)
+            self._track(out, (args, kwargs))
+            return out
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented          # let DTensor desugar it first
+        if func is torch.ops._c10d_functional.wait_tensor.default:
+            # a card's wait returns its input; a fake tensor's, a new
+            # storage for the same data: counted as the input, alive while
+            # either is
+            out = func(*args, **kwargs)
+            st = out.untyped_storage()
+            if st is not args[0].untyped_storage():
+                self._seen.add(st)
+                self._waited[st] = args[0]
+            return out
         kind = collective_kind(func)
         if kind is not None:
             out = func(*args, **kwargs)
             self.coll_bytes[kind] += _bytes(out)
             self.coll_count[kind] += 1
+            if kind == "all-gather":
+                self.gathered.append(tuple(out.shape))
             self._track(out, (args, kwargs))
             return out
         if func not in self.registry and \
@@ -201,9 +284,7 @@ class DeviceCostMode(TorchDispatchMode):
             st = t.untyped_storage()
             if st in self._seen:
                 continue
-            n = st.nbytes()
-            if t.device.type == "cuda":
-                n = -(-n // 512) * 512
+            n = storage_bytes(t)
             self._seen.add(st)
             self.live += n
             self.peak = max(self.peak, self.live)
@@ -211,6 +292,72 @@ class DeviceCostMode(TorchDispatchMode):
 
     def _free(self, n):
         self.live -= n
+
+    @staticmethod
+    def storage_of(tensors) -> int:
+        """The bytes the mode counts for new storages of ``tensors``."""
+        return sum(map(storage_bytes, tensors))
+
+    def counts(self) -> dict:
+        """The counters so far: FLOPs, bytes accessed, and collective
+        bytes and counts by kind."""
+        return {"flops": self.flops, "bytes accessed": self.bytes_accessed,
+                "coll_bytes": dict(self.coll_bytes),
+                "coll_count": dict(self.coll_count)}
+
+    def since(self, mark: dict) -> dict:
+        """The counts added since ``mark`` (a ``counts()``)."""
+        now = self.counts()
+        delta = {k: now[k] - mark[k] for k in ("flops", "bytes accessed")}
+        for key in ("coll_bytes", "coll_count"):
+            delta[key] = {kind: v - mark[key].get(kind, 0)
+                          for kind, v in now[key].items()}
+        return delta
+
+    def add(self, delta: dict, times: int):
+        """``delta`` (a ``since``) counted ``times`` more."""
+        self.flops += delta["flops"] * times
+        self.bytes_accessed += delta["bytes accessed"] * times
+        for key, tgt in (("coll_bytes", self.coll_bytes),
+                         ("coll_count", self.coll_count)):
+            for kind, v in delta[key].items():
+                tgt[kind] += v * times
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Ops that run without being counted; their new storages are
+        live storage all the same."""
+        self._uncounted += 1
+        try:
+            yield
+        finally:
+            self._uncounted -= 1
+
+    def stand_in(self, tree):
+        """Uncounted empty tensors of ``tree``'s shapes (a position
+        loop's final state after trips not dispatched)."""
+        from torch.utils._pytree import tree_map
+        with self.uncounted():
+            return tree_map(torch.empty_like, tree)
+
+    def stand_in_trips(self, leaves, times: int):
+        """``times`` trips' outputs of the shapes of ``leaves``, each a
+        view of one uncounted buffer a leaf: [[leaf views] a trip]."""
+        with self.uncounted():
+            views = [x.new_empty((times,) + tuple(x.shape)).unbind(0)
+                     for x in leaves]
+        return [list(v) for v in zip(*views)]
+
+    def repeat_backward(self, times: int):
+        """Counts one trip's backward ``times`` more: from when every
+        tensor of the state a trip hands on (``starts_at``) has its
+        gradient to when every tensor of the state it took (``ends_at``)
+        has its own, through tensor hooks.  Until then an uncounted
+        stand-in (``keep``: the bytes the trips not dispatched save for
+        the backward) is live storage, as those tensors are in the whole
+        trace from the loop's forward (or a checkpoint's recompute) until
+        its backward has passed the last of those trips."""
+        return _BackwardTrip(self, times)
 
     def stats(self) -> CollectiveStats:
         per = dict(self.coll_bytes)

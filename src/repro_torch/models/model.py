@@ -72,7 +72,7 @@ from repro_torch.models.layers import (compute_dtype, embed_apply,
                                        lm_head_apply, param, rmsnorm)
 from repro_torch.sharding import act_sharding as _act
 from repro_torch.sharding.local import (argmax_last, gathered_over_data,
-                                       log_softmax_last, take_last)
+                                       nll_last)
 from repro_torch.models.transformer import (CROSS_LEAVES, SEQ_BLOCKS,
                                            apply_train, check_supported,
                                            layer_kinds, make_layers)
@@ -165,8 +165,7 @@ def train_loss(model: Transformer, batch, remat: bool = True):
         # float32 logits stay sharded through the cross entropy
         logits = _act.constrain(logits, _act.AXES.dp, None,
                                 _act.AXES.model)
-    logp = log_softmax_last(logits)
-    nll = -take_last(logp, labels)
+    nll = nll_last(logits, labels)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(nll)

@@ -3,7 +3,7 @@ dry run, ``launch.dryrun``): the steps that DTensor has no sharding
 strategy for, or would meet by gathering a whole tensor, run on each
 rank's local shards through ``local_map`` with placements derived from
 their operands (cache writes, attention cores, the vocab-parallel
-embedding, log-softmax, pick and argmax), and the few redistributions the
+embedding, cross entropy, pick and argmax), and the few redistributions the
 model code asks for by name (``settled`` partial sums, gradients
 ``laid_out_as`` their parameters).  Every helper is the plain operation
 on plain tensors, and nothing here imports ``torch.distributed`` unless a
@@ -222,6 +222,40 @@ def argmax_last(x):
                      device_mesh=mesh)(x)
 
 
+def part_blocks(u, n_parts: int, mesh, mdim: int):
+    """u: one rank's block (..., n_parts * n) of a tensor (..., n_parts *
+    N) sharded on its last dim over mesh dim ``mdim`` (M ranks, N = M n),
+    whose last dim is ``n_parts`` concatenated parts of N channels (a
+    fused projection: Mamba's [x | z], sLSTM's [i | f | z | o]).  Returns
+    (..., n_parts, n): every part's channels of this rank's own block
+    [rank n, rank n + n), by one all-to-all over ``mdim`` (differentiable:
+    the backward is the reverse all-to-all)."""
+    from torch.distributed import _functional_collectives as funcol
+    M, r = mesh.size(mdim), mesh.get_local_rank(mdim)
+    n = u.shape[-1] // n_parts
+    # global block k (n channels) is part k // M, channel block k % M, and
+    # this rank holds blocks n_parts r .. n_parts r + n_parts - 1; the
+    # all-to-all sends in order of destination and receives in order of
+    # source, which is the parts' order
+    ks = sorted(range(n_parts * r, n_parts * (r + 1)), key=lambda k: k % M)
+    send, recv = [0] * M, [0] * M
+    for k in ks:
+        send[k % M] += n
+    for p in range(n_parts):
+        recv[(p * M + r) // n_parts] += n
+    blocks = u.unflatten(-1, (n_parts, n))
+    lead = tuple(u.shape[:-1])
+    t = torch.stack([blocks[..., k - n_parts * r, :] for k in ks], 0)
+    out = funcol.all_to_all_single_autograd(
+        t.movedim(-1, 1).reshape((n_parts * n,) + lead), recv, send,
+        (mesh, mdim))
+    # a copy, not a view: a view of the collective's result stays an
+    # ``AsyncCollectiveTensor``, which ``local_map`` unwraps without its
+    # autograd history when it next takes the tensor in
+    return out.reshape((n_parts, n) + lead).movedim(0, -1).movedim(0, -1) \
+        .contiguous()
+
+
 def laid_out_as(t, ref):
     """``t`` redistributed to ``ref``'s placements when both are DTensors
     (a gradient left partial over the data axes is summed there: the data
@@ -314,49 +348,97 @@ def settled(t):
                                           else p for p in t.placements])
 
 
-def log_softmax_last(x):
-    """``torch.log_softmax(x, -1)``; on a DTensor sharded on its last dim
-    (the vocabulary over ``model``) in the vocab-parallel form: the max
-    and the sum of exponentials are reduced over the ranks (two small
-    all-reduces), the logits stay on their rank."""
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log_softmax(z)[label] of one rank's block z (..., n) of the
+    vocabulary: the max, then the sum of exponentials and the label's
+    logit (the block that holds it gives it, the others 0), all-reduced
+    by ``reduce(t, op)`` over the ranks that split the vocabulary.  The
+    backward is local: softmax_block - onehot_block, times the upstream
+    gradient, which is whole on every rank (the loss is)."""
+
+    @staticmethod
+    def forward(ctx, z, j, reduce):
+        n = z.shape[-1]
+        mine = (j >= 0) & (j < n)
+        jc = j.clamp(0, n - 1)
+        m = reduce(z.amax(-1), "max")
+        picked = z.gather(-1, jc[..., None])[..., 0] * mine.to(z.dtype)
+        s = reduce(torch.stack([torch.exp(z - m[..., None]).sum(-1),
+                                picked]), "sum")
+        lse = m + s[0].log()
+        ctx.save_for_backward(z, jc, mine, lse)
+        return lse - s[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        z, jc, mine, lse = ctx.saved_tensors
+        grad = torch.exp(z - lse[..., None]).mul_(g[..., None])
+        grad.scatter_add_(-1, jc[..., None],
+                          -(g * mine.to(g.dtype))[..., None])
+        return grad, None, None
+
+
+def nll_last(x, idx):
+    """``-torch.log_softmax(x, -1)`` at ``idx`` (x (..., V), idx (...)):
+    the cross entropy's per-row loss.  On a DTensor sharded on its last
+    dim (the vocabulary over ``model``) each rank computes it on its own
+    block in one ``local_map`` (Megatron's vocab-parallel cross
+    entropy): two all-reduces of (...) rows forward, none backward, and
+    the logits' gradient leaves laid out as the logits, so neither x nor
+    its gradient is ever gathered.  Otherwise (a plain tensor, or a
+    replicated vocabulary) ``torch.log_softmax`` and ``take_last``."""
     if not is_dtensor(x) or not _shard_dims(x.placements, x.ndim - 1):
-        return torch.log_softmax(x, dim=-1)
-    m = settled(x.amax(-1, keepdim=True)).detach()
-    z = x - m
-    return z - settled(z.exp().sum(-1, keepdim=True)).log()
+        return -take_last(torch.log_softmax(x, dim=-1), idx)
+    last = x.ndim - 1
+    dims = _shard_dims(x.placements, last)
+    if len(dims) > 1:
+        raise NotImplementedError("last dim sharded over several mesh dims")
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh, xpl = x.device_mesh, list(x.placements)
+    idx_pl = [p if p.is_shard() and p.dim < last else Replicate()
+              for p in xpl]
+
+    def reduce(t, op):
+        return funcol.all_reduce(t, op, (mesh, dims[0]))
+
+    def local(xl, il):
+        j = il - shard_offset(mesh, xpl, last, xl.shape[-1])
+        return _VocabParallelNLL.apply(xl, j, reduce)
+
+    return local_map(local, out_placements=idx_pl,
+                     in_placements=(xpl, idx_pl),
+                     in_grad_placements=(xpl, idx_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(x, as_dtensor(idx, mesh))
 
 
 def take_last(x, idx):
-    """``x.gather(-1, idx[..., None])[..., 0]``; on a DTensor each rank
-    picks the entries of its own block of the last dim (zeros for the
-    others) and the picks are summed over the ranks that split it, so
-    neither x nor its gradient is ever gathered (DTensor's own gather
-    backward builds a zero tensor of x's global shape)."""
+    """``x.gather(-1, idx[..., None])[..., 0]`` for x whose last dim is
+    whole on every rank (a vocab-sharded x goes through ``nll_last``); on
+    a DTensor each rank picks from its own rows, so neither x nor its
+    gradient is ever gathered (DTensor's own gather backward builds a
+    zero tensor of x's global shape)."""
     if not is_dtensor(x):
         return x.gather(-1, idx[..., None])[..., 0]
-    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
-    mesh, last = x.device_mesh, x.ndim - 1
+    last = x.ndim - 1
+    if _shard_dims(x.placements, last):
+        raise NotImplementedError("take_last of a last dim sharded over "
+                                  "the mesh")
     xpl = list(x.placements)
-    vdims = _shard_dims(xpl, last)
     idx_pl = [p if p.is_shard() and p.dim < last else Replicate()
               for p in xpl]
-    out_pl = [Partial() if i in vdims else idx_pl[i]
-              for i in range(mesh.ndim)]
 
     def local(xl, il):
-        n = xl.shape[-1]
-        j = il - shard_offset(mesh, xpl, last, n)
-        v = xl.gather(-1, j.clamp(0, n - 1)[..., None])[..., 0]
-        if vdims:
-            v = v * ((j >= 0) & (j < n)).to(v.dtype)
-        return v
+        return xl.gather(-1, il[..., None])[..., 0]
 
-    return settled(local_map(local, out_placements=out_pl,
-                             in_placements=(xpl, idx_pl),
-                             in_grad_placements=(xpl, idx_pl),
-                             device_mesh=mesh, redistribute_inputs=True)(
-                                 x, as_dtensor(idx, mesh)))
+    return local_map(local, out_placements=idx_pl,
+                     in_placements=(xpl, idx_pl),
+                     in_grad_placements=(xpl, idx_pl),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(
+                         x, as_dtensor(idx, x.device_mesh))
 
 
 @contextlib.contextmanager

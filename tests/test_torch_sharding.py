@@ -17,9 +17,16 @@
   hand-built DTensor program over a fake mesh.
 - The dry run's skip decisions equal the reference's for all 80 arch x
   shape x mesh combinations, and ``run_combo`` reaches ``ok`` on smoke
-  variants of a dense, a MoE, an SSM and an MLA config on a (2, 4) fake
-  mesh; on a (1, 1) fake mesh its FLOPs equal ``FlopCounterMode`` of the
-  same step run unsharded on CPU tensors.
+  variants of a dense (decode and train), a MoE, an SSM, a hybrid and an
+  MLA config on a (2, 4) fake mesh; on a (1, 1) fake mesh its FLOPs
+  equal ``FlopCounterMode`` of the same step run unsharded on CPU
+  tensors.
+- On those smoke combos: a vocab-sharded train step makes no storage
+  whose last dim is the vocabulary, and no all-gather gathers a large
+  SSM mixer projection or a state over ``model``.
+- The calibrated count (``calibrate=True``) of smoke combos that also
+  trace whole equals the whole trace's FLOPs, bytes accessed and
+  collectives exactly, its extrapolated peak within 2 %.
 
 The reference's ``repro.launch.dryrun`` is never imported here: it sets
 XLA_FLAGS at import.  Specs are built from sizes only (a ``FakeMesh``),
@@ -279,7 +286,27 @@ SMOKE_COMBOS = [
      dryrun.Options(shard_acts=True, moe_groups=True)),
     ("xlstm-1.3b", "long_500k", dryrun.Options()),
     ("deepseek-v2-lite-16b", "decode_32k", dryrun.Options()),
+    ("qwen2.5-3b", "train_4k", dryrun.Options()),
+    ("jamba-1.5-large-398b", "decode_32k", dryrun.Options()),
 ]
+
+
+def _new_storage_shapes(monkeypatch):
+    """Patches ``DeviceCostMode`` to record the shape of every tensor a
+    rank's local ops make on a new storage; returns the list."""
+    shapes = []
+    track = comm_analysis.DeviceCostMode._track
+
+    def _track(mode, out, inputs=()):
+        from torch.utils._pytree import tree_flatten
+        seen = set(map(id, mode._seen))
+        shapes.extend(tuple(t.shape) for t in tree_flatten(out)[0]
+                      if isinstance(t, torch.Tensor)
+                      and id(t.untyped_storage()) not in seen)
+        return track(mode, out, inputs)
+
+    monkeypatch.setattr(comm_analysis.DeviceCostMode, "_track", _track)
+    return shapes
 
 
 @pytest.mark.parametrize("arch,shape_name,opts", SMOKE_COMBOS)
@@ -294,6 +321,83 @@ def test_run_combo_smoke_ok(arch, shape_name, opts):
     assert rec["collectives"]["total_collective_bytes"] > 0
     if opts.moe_groups:
         assert rec["levers"]["moe_groups"] == 2
+
+
+@pytest.mark.parametrize("arch,shape_name,opts", [
+    c for c in SMOKE_COMBOS if c[0] in ("xlstm-1.3b",
+                                        "jamba-1.5-large-398b")])
+def test_smoke_ssm_gathers_no_mixer_projection_or_state(arch, shape_name,
+                                                       opts):
+    """No all-gather over ``model`` has the result shape of a large SSM
+    mixer projection or of a recurrent state (``dryrun.whole_over_model``,
+    against the shapes ``DeviceCostMode`` records): each mixer runs on
+    its shard."""
+    cfg = configs.smoke_variant(configs.get_config(arch))
+    rec = dryrun.run_combo(arch, shape_name, device="cpu", cfg=cfg,
+                           mesh_shape=(2, 4), opts=opts)
+    assert rec["status"] == "ok", rec.get("traceback")
+    shape = INPUT_SHAPES[shape_name]
+    mesh = make_fake_mesh((2, 4), ("data", "model"), device="cpu")
+    forbidden = dryrun.whole_over_model(for_shape(cfg, shape), shape, mesh,
+                                        tpart.MeshAxes())
+    assert len(forbidden) >= 4
+    assert rec["collectives"]["per_kind_count"]["all-gather"] > 0
+    assert rec["collectives"]["whole_mixer_gathers"] == 0
+
+
+def test_vocab_sharded_train_step_makes_no_full_vocab_storage(monkeypatch):
+    """The vocab-parallel cross entropy (``sharding.local.nll_last``):
+    no tensor a rank makes in a train step has the whole vocabulary as
+    its last dim (the logits, their log-softmax and their gradient stay
+    (B, S, V / 4) blocks)."""
+    new = _new_storage_shapes(monkeypatch)
+    V = 1000                         # divides 4; no other dim of the step
+    cfg = dataclasses.replace(configs.smoke_variant(
+        configs.get_config("qwen2.5-3b")), vocab=V)
+    rec = dryrun.run_combo("qwen2.5-3b", "train_4k", device="cpu", cfg=cfg,
+                           mesh_shape=(2, 4))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert (128, 4096, V // 4) in new
+    assert not [s for s in new if s and s[-1] == V]
+
+
+# (arch, step kind, units, positions): sLSTM's training recurrence over
+# 96 positions keeps enough alive for its backward to weigh in the peak
+CAL_COMBOS = [("qwen2.5-3b", "decode", 3, 24), ("qwen2.5-3b", "train", 3, 24),
+              ("xlstm-1.3b", "prefill", 3, 24), ("xlstm-1.3b", "train", 3, 96)]
+
+
+@pytest.mark.parametrize("arch,kind,units,seq", CAL_COMBOS)
+def test_calibrated_count_equals_whole_trace(arch, kind, units, seq):
+    """The calibrated count (``CAL_UNITS`` units traced, the position
+    loops' trips multiplied, the train update traced whole) against the
+    whole trace of a smoke config of ``units`` units: FLOPs, bytes
+    accessed and every collective kind's count and bytes equal, the
+    extrapolated peak within 2 %."""
+    base = configs.smoke_variant(configs.get_config(arch))
+    cfg = dataclasses.replace(base, n_layers=base.n_prefix_layers
+                              + units * base.period)
+    spec = ShapeSpec("smoke_" + kind, kind, seq, 4)
+    assert dryrun.n_units(cfg) == units > max(dryrun.CAL_UNITS)
+    whole, cal = (dryrun.run_combo(arch, spec.name, device="cpu", cfg=cfg,
+                                   mesh_shape=(2, 4), spec=spec,
+                                   calibrate=c) for c in (False, True))
+    assert whole["status"] == cal["status"] == "ok", cal.get("traceback")
+    assert "scan_calibration" not in whole
+    assert cal["calibration_status"] == "ok"
+    sc = cal["scan_calibration"]
+    assert sc["n_units"] == units
+    assert set(sc) >= {f"cost_{n}p" for n in dryrun.CAL_UNITS}
+    assert cal["memory"]["peak_extrapolated"]
+    assert not whole["memory"]["peak_extrapolated"]
+    assert cal["cost"] == whole["cost"]
+    for key in ("per_kind_bytes", "per_kind_count"):
+        assert cal["collectives"][key] == whole["collectives"][key]
+    assert cal["memory"]["argument_bytes"] == \
+        whole["memory"]["argument_bytes"]
+    ratio = cal["memory"]["peak_per_device"] / \
+        whole["memory"]["peak_per_device"]
+    assert abs(ratio - 1) <= 0.02, ratio
 
 
 TINY = {"decode": ShapeSpec("tiny_decode", "decode", 48, 4),
