@@ -113,9 +113,18 @@ Phases:
      teacher-forced logits, in bf16 and in float32, each within its
      bound of RING_ATOL, and the reference's ring check at the float32
      smoke variant (W 8) at RING_SMOKE_ATOL; (c) one K-SQS round served
-     on the full-width ring at a capacity it cannot wrap, then a
-     fixed-batch run and a slot allocation whose ring would wrap, each
-     refused with ``WindowWrapError`` and nothing else.
+     on the full-width ring at a capacity it cannot wrap, then the pair
+     served past the wrap on the engine's rings of W + ring_spare(L_MAX)
+     slots: prompts of W + WRAP_PAST + 1 tokens (B 4), K-SQS rounds
+     (which reject) and uncompressed rounds at WRAP_BUDGET bits (which
+     accept), fixed batch and a pipelined trace with speculation, their
+     SQS launches counted and t_slm / t_llm printed beside the round
+     before the wrap, and each row's target and draft caches held
+     against a teacher-forced windowed recompute of its committed tokens
+     at RING_ATOL; (d) the full-width float32 pair at W SMALL_W, where
+     one lost key shows, served past its wrap with the engine's spare
+     (fixed batch and a pipelined trace, within RING_ATOL["float32"])
+     and with none (fixed batch, the target past it).
 
  14. the encoder-decoder and M-RoPE family, after the MLA models are
      freed: (a) ``qwen2-vl-72b`` at full width (d 8192, 64/8 heads,
@@ -2654,14 +2663,15 @@ def ring_check(model, toks, n_steps, atol, label):
 def phase_window(dev):
     """(b) the ring at full width in bf16 and float32 and at the float32
     smoke variant; (c) a K-SQS round on the full-width ring where it
-    cannot wrap, then the refusals where it would.  Returns the SQS
-    launches of (c)'s round."""
+    cannot wrap, then rounds past the wrap; (d) the float32 pair at a
+    small window with and without the spare.  Returns the SQS launches
+    of (c) and (d)."""
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.bridge import seeded_model
     from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
-                                         MethodConfig, WindowWrapError)
+                                         MethodConfig)
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import sqs_fused as k
     tc = configs.for_shape(configs.get_config(WINDOW_ARCH),
@@ -2692,7 +2702,7 @@ def phase_window(dev):
     dc = configs.draft_variant(tc, 2)
     dp = seeded_model(dc, 2, dev)
     print(f"phase 13 (c): {tc.name} (W {W}) <- {dc.name} (W "
-          f"{dc.sliding_window}) served, then refused where the ring would "
+          f"{dc.sliding_window}), {tp.dtype}, served before and past the "
           "wrap")
     eng = EdgeCloudEngine(dc, dp, tc, tp, MethodConfig("ksqs", K=64,
                                                        ell=100),
@@ -2700,31 +2710,268 @@ def phase_window(dev):
     prompts = SyntheticLM(DataConfig(vocab=tc.vocab, seed=77)).sample(
         BATCH, PROMPT_LEN)[:, :-1]
     k.reset_launches()
-    rounds, out = eng.run(prompts, 1)
+    rounds, out = eng.run(prompts, ROUNDS)
     launches = dict(k.LAUNCHES)
-    check(launches == {"sqs_fused": L_MAX + 1, "topk_threshold": L_MAX + 1},
+    steps = ROUNDS * (L_MAX + 1)
+    check(launches == {"sqs_fused": steps, "topk_threshold": steps},
           f"window: launches {launches}")
-    check(all(len(row) >= 1 and all(0 <= t < tc.vocab for t in row)
+    check(all(len(row) >= ROUNDS and all(0 <= t < tc.vocab for t in row)
               for row in out), f"window: tokens {out}")
-    print(f"  one ksqs round at capacity {eng.cloud.cache_len} <= W: ring of "
-          f"{eng.tcache[0]['k'].shape[1]} slots, t_slm "
-          f"{rounds[0]['t_slm'] * 1e3:.2f} ms, t_llm "
-          f"{rounds[0]['t_llm'] * 1e3:.2f} ms; launches {launches}")
-    long_prompts = torch.zeros((BATCH, W - 4096 + 1), dtype=torch.int64)
-    for label, call in (
-            (f"fixed batch of {long_prompts.shape[1]}-token prompts "
-             f"(capacity {long_prompts.shape[1] + 4096})",
-             lambda: eng.run(long_prompts, 1)),
-            (f"{SLOTS} slots of capacity {W + PAGE}",
-             lambda: eng.init_slots(SLOTS, W + PAGE))):
-        try:
-            call()
-        except WindowWrapError as e:
-            print(f"  {label}: refused: {e}")
-        else:
-            raise CheckFailed(f"{label}: served on a ring that wraps")
-    eng.init_slots(SLOTS, W)
-    print(f"  {SLOTS} slots of capacity {W}: allowed")
+    print(f"  {ROUNDS} ksqs rounds at capacity {eng.cloud.cache_len} <= W: "
+          f"ring of {eng.tcache[0]['k'].shape[1]} slots, t_slm ms median "
+          f"{statistics.median(r['t_slm'] for r in rounds) * 1e3:.2f} ("
+          + " ".join(f"{r['t_slm'] * 1e3:.1f}" for r in rounds)
+          + "), t_llm ms median "
+          f"{statistics.median(r['t_llm'] for r in rounds) * 1e3:.2f} ("
+          + " ".join(f"{r['t_llm'] * 1e3:.1f}" for r in rounds)
+          + f"); launches {launches}")
+    del eng
+    for name, n in past_the_wrap(dev, dc, dp, tc, tp).items():
+        launches[name] += n
+    del tp, dp
+    free_cuda()
+    for name, n in small_window_rings(dev, tc).items():
+        launches[name] += n
+    return launches
+
+
+# (c) past the wrap: prompts of W + WRAP_PAST + 1 tokens (the prefill's
+# W + WRAP_PAST, a multiple of 512, runs in query chunks of 512: the
+# chunk loop is host-bound at B 1), so the ring wrapped before the first
+# round; K-SQS rounds, which reject, and uncompressed rounds with every
+# draft sent (WRAP_BUDGET bits), which accept, fixed batch then a
+# pipelined trace with speculation
+WRAP_PAST, WRAP_BUDGET = 512, 1e9
+WRAP_ROUNDS = {"ksqs": 3, "uncompressed": 1}
+# a trace's requests and new tokens a request: room for a speculative
+# round after the first (K-SQS sends ~5 drafts a round at 5000 bits,
+# uncompressed all L_MAX)
+WRAP_TRACE = {"ksqs": (1, 7), "uncompressed": (1, 10)}
+# (d) the full-width float32 pair at a window where one lost key shows
+# (W 8192 hides a few): prompts of SMALL_W_PROMPT tokens, SMALL_W_ROUNDS
+# K-SQS rounds (which reject), with the engine's spare and with none,
+# and with the spare a pipelined trace of SMALL_W_TRACE
+SMALL_W, SMALL_W_PROMPT, SMALL_W_ROUNDS = 64, 161, 3
+SMALL_W_TRACE = (2, 7)
+
+
+def teacher_forced_last(model, rows):
+    """The windowed teacher-forced logits after the last token of each of
+    ``rows`` (token lists): one pass of the stack over the rows padded to
+    a multiple of 512 (causal, so the padding is not read; query chunks
+    of 512), the head at each row's last position only.  (B, V)."""
+    import torch
+    from repro_torch.models import model as model_mod
+    lens = [len(r) for r in rows]
+    t = torch.zeros((len(rows), -(-max(lens) // 512) * 512),
+                    dtype=torch.int64, device=model.device)
+    for i, r in enumerate(rows):
+        t[i, :len(r)] = torch.tensor(r, device=model.device)
+    last = torch.tensor(lens, device=model.device) - 1
+    with torch.no_grad():
+        x, _ = model_mod._stack(model, t, None, None, remat=False,
+                                dropless=True)
+        x = x[torch.arange(len(rows), device=model.device), last]
+        return model.head(x[:, None])[:, 0]
+
+
+def hold_rings(label, eng, streams, atol, strict=True):
+    """Each row's served target and draft caches against a teacher-forced
+    windowed recompute of its committed tokens ``streams[b]`` (prompt +
+    emitted): the next-token logits of a decode step of the row's last
+    committed token on the served cache against the recompute's.  With
+    ``strict``, max |difference| within ``atol`` and the argmax equal
+    wherever the recompute's top-2 gap exceeds it.  Returns the worst
+    difference of each side."""
+    from repro_torch.models import model as model_mod
+    worst = {}
+    for side, actor, cache in (("target", eng.cloud, eng.cloud.tcache),
+                               ("draft", eng.edge, eng.edge.dcache)):
+        rows = sorted(streams)
+        for b, p in zip(rows, actor.pos[rows].tolist()):
+            check(len(streams[b]) == p + 1
+                  and streams[b][-1] == int(actor.x_last[b]),
+                  f"{label} {side}: row {b} stream and position disagree")
+        lg, _ = model_mod.decode_step(actor.model, actor.x_last, cache,
+                                      actor.pos)
+        ref = teacher_forced_last(actor.model, [streams[b] for b in rows])
+        got = lg[rows].float()
+        worst[side] = float((got - ref).abs().max())
+        if strict:
+            check(worst[side] <= atol, f"{label} {side}: max |logit "
+                  f"difference| {worst[side]:.3g} > {atol}")
+            for i, b in enumerate(rows):
+                if int(got[i].argmax()) != int(ref[i].argmax()):
+                    top2 = ref[i].topk(2).values
+                    check(float(top2[0] - top2[1]) <= atol,
+                          f"{label} {side}: row {b} argmax differs")
+    return worst
+
+
+def serve_rounds(label, eng, prompts, pipeline, n_rounds, trace):
+    """Fixed-batch ``n_rounds`` of ``prompts`` (B, P) (``pipeline``
+    "lockstep"), or a pipelined trace of ``trace`` = (requests, new
+    tokens a request) prompts of P tokens over SLOTS slots, which must
+    speculate.  Returns (each row's committed tokens: prompt + emitted,
+    a summary for the log)."""
+    import numpy as np
+    from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
+                                   poisson_trace)
+    P = prompts.shape[1]
+    if pipeline == "lockstep":
+        rounds, _ = eng.run(prompts, n_rounds)
+        streams = {b: [int(t) for t in prompts[b]]
+                   for b in range(prompts.shape[0])}
+        extra = ("accepted tokens a row a round " + " ".join(
+            f"{float(r['n_accept'].mean()):.2f}" for r in rounds))
+    else:
+        streams, admit = {}, eng.admit_slot
+
+        def admitted(slot, prompt, seed, **kw):
+            streams[slot] = [int(t) for t in np.asarray(prompt)]
+            return admit(slot, prompt, seed, **kw)
+        eng.admit_slot = admitted
+        n_req, new = trace
+        rep = ServeSession(eng, ServeConfig(
+            max_batch=SLOTS, cache_len=P + new + L_MAX + 1, t_slm_s=0.05,
+            t_llm_s=0.03, pipeline="pipelined")).run_trace(
+                poisson_trace(TraceConfig(
+                    n_requests=n_req, rate_rps=50.0, prompt_len=P,
+                    min_new_tokens=new, max_new_tokens=new,
+                    vocab=eng.V, seed=6)))
+        summ = rep.summary()
+        check(rep.n_finished == n_req and summ["n_spec_hits"]
+              + summ["n_spec_misses"] > 0, f"{label}: {rep.n_finished} "
+              f"of {n_req} finished, {summ['n_spec_hits']} + "
+              f"{summ['n_spec_misses']} speculative rounds")
+        extra = (f"{summ['total_tokens']} tokens in {summ['n_rounds']} "
+                 f"rounds, speculation {summ['n_spec_hits']} hits / "
+                 f"{summ['n_spec_misses']} misses")
+    for b in streams:
+        streams[b] += [int(t) for t in eng.out_tokens[b]]
+    return streams, extra
+
+
+def past_the_wrap(dev, dc, dp, tc, tp):
+    """(c): the W-8192 pair past the wrap, fixed batch and a pipelined
+    trace, each method's rounds timed, each row's caches held against the
+    windowed recompute at RING_ATOL.  Returns the SQS launches."""
+    import torch
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig, ring_spare)
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sqs_fused as k
+    W = tc.sliding_window
+    P = W + WRAP_PAST + 1
+    atol = RING_ATOL[str(tp.dtype).split(".")[-1]]
+    prompts = SyntheticLM(DataConfig(vocab=tc.vocab, seed=78)).sample(
+        BATCH, P)[:, :P]
+    launches = {name: 0 for name in k.LAUNCHES}
+    for method in ("ksqs", "uncompressed"):
+        budget = WRAP_BUDGET if method == "uncompressed" else 5000.0
+        for pipeline in ("lockstep", "pipelined"):
+            label = f"past the wrap, {method}, {pipeline}"
+            eng = EdgeCloudEngine(dc, dp, tc, tp,
+                                  MethodConfig(method, K=64, ell=100),
+                                  EngineConfig(L_max=L_MAX,
+                                               bit_budget=budget),
+                                  seed=0, device=dev)
+            log = {"t_slm": [], "t_llm": []}
+            record_times(eng, log)
+            t1 = time.perf_counter()
+            k.reset_launches()
+            streams, extra = serve_rounds(label, eng, prompts, pipeline,
+                                          WRAP_ROUNDS[method],
+                                          WRAP_TRACE[method])
+            got = dict(k.LAUNCHES)
+            wall = time.perf_counter() - t1
+            if method == "ksqs":
+                check(got["sqs_fused"] == got["topk_threshold"] > 0,
+                      f"{label}: launches {got}")
+            for name in launches:
+                launches[name] += got[name]
+            R = eng.tcache[0]["k"].shape[1]
+            check(R == W + ring_spare(L_MAX) and eng.dcache[0]["k"].shape[1]
+                  == R, f"{label}: a ring of {R} slots")
+            worst = hold_rings(label, eng, streams, atol)
+            print(f"  {label}: prompts of {P} tokens, rings of {R} slots "
+                  f"(W + {R - W}); {wall:.1f} s; {extra}; launches {got}")
+            print(f"    t_slm ms median "
+                  f"{statistics.median(log['t_slm']) * 1e3:.2f} ("
+                  + " ".join(f"{t * 1e3:.1f}" for t in log["t_slm"])
+                  + f"), t_llm ms median "
+                  f"{statistics.median(log['t_llm']) * 1e3:.2f} ("
+                  + " ".join(f"{t * 1e3:.1f}" for t in log["t_llm"]) + ")")
+            print(f"    caches against the windowed recompute of "
+                  f"{len(streams)} rows' committed tokens: max |logit "
+                  f"difference| target {worst['target']:.3g}, draft "
+                  f"{worst['draft']:.3g} (bound {atol})")
+            del eng
+            torch.cuda.empty_cache()
+    return launches
+
+
+def small_window_rings(dev, tc):
+    """(d): the full-width float32 pair at W SMALL_W served past its wrap
+    with the engine's spare (fixed batch and a pipelined trace) and with
+    none (fixed batch): the caches within RING_ATOL["float32"] of the
+    recompute with the spare, the target's past it without.  Returns the
+    SQS launches."""
+    import dataclasses
+    import torch
+    from repro_torch.bridge import seeded_model
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    tc = dataclasses.replace(tc, sliding_window=SMALL_W)
+    dc = configs.draft_variant(tc, 2)
+    tp = seeded_model(tc, 1, dev, dtype=torch.float32)
+    dp = seeded_model(dc, 2, dev, dtype=torch.float32)
+    atol = RING_ATOL["float32"]
+    prompts = SyntheticLM(DataConfig(vocab=tc.vocab, seed=79)).sample(
+        BATCH, SMALL_W_PROMPT)[:, :SMALL_W_PROMPT]
+    spare = engine_mod.ring_spare
+    launches = {name: 0 for name in k.LAUNCHES}
+    worst = {}
+    try:
+        for label, sp in (("the engine's spare", spare(L_MAX)),
+                          ("no spare", 0)):
+            engine_mod.ring_spare = lambda L, sp=sp: sp
+            # with the spare also a pipelined trace, whose speculative
+            # drafts write furthest past the committed position
+            for pipeline in ("lockstep", "pipelined")[:1 + (sp > 0)]:
+                name = f"W {SMALL_W}, {label}, {pipeline}"
+                eng = engine_mod.EdgeCloudEngine(
+                    dc, dp, tc, tp, engine_mod.MethodConfig("ksqs", K=64,
+                                                            ell=100),
+                    engine_mod.EngineConfig(L_max=L_MAX), seed=0,
+                    device=dev)
+                k.reset_launches()
+                rows, extra = serve_rounds(name, eng, prompts, pipeline,
+                                           SMALL_W_ROUNDS, SMALL_W_TRACE)
+                for kname, n in k.LAUNCHES.items():
+                    launches[kname] += n
+                check(eng.tcache[0]["k"].shape[1] == SMALL_W + sp,
+                      f"{name}: ring size")
+                worst[name] = hold_rings(name, eng, rows, atol,
+                                         strict=sp > 0)
+                print(f"  full width float32 {name} (rings of "
+                      f"{SMALL_W + sp}), ksqs on {SMALL_W_PROMPT}-token "
+                      f"prompts, {extra}: max |logit difference| against "
+                      f"the recompute: target {worst[name]['target']:.3g}, "
+                      f"draft {worst[name]['draft']:.3g} (bound {atol})")
+                del eng
+    finally:
+        engine_mod.ring_spare = spare
+    no_spare = worst[f"W {SMALL_W}, no spare, lockstep"]["target"]
+    check(no_spare > atol, f"W {SMALL_W}, no spare: the lost keys do not "
+          f"show ({no_spare:.3g})")
+    print(f"  phase 13 (d): {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}")
+    del tp, dp
+    free_cuda()
     return launches
 
 

@@ -9,10 +9,18 @@ trajectory (``backtrack_wire``).  Mirrors ``repro.core.conformal``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from repro_torch.prng import fma
+
+
+class ConformalConfig(NamedTuple):
+    alpha: float = 5e-4        # target average dropped mass
+    eta: float = 1e-3          # learning rate
+    beta0: float = 1e-3        # initial threshold β₁¹
 
 
 def update(beta, dropped_mass, alpha: float, eta: float):

@@ -39,11 +39,13 @@ which the next admission overwrites.  Stateful models serve lockstep
 only: the optimistic continuation and per-slot verdicts of pipelined
 serving need positional caches.
 
-A sliding-window model's attention cache is a ring of W slots, and a ring
-that has wrapped cannot take back a rejected draft (its write overwrote a
-key still inside the window; ``models.attention``).  Both actors refuse a
-cache capacity past W (``WindowWrapError``) before any round, in
-fixed-batch and slot mode alike.
+A sliding-window model's attention cache is a ring.  The reference's
+ring of W slots cannot take back a rejected draft once it has wrapped
+(the draft's write overwrote a key still inside the window;
+``models.attention``); both actors here build their rings ``ring_spare``
+slots longer, so what a rejected or speculative draft writes past the
+committed position never stands for a key a later query reads, and a
+sliding-window pair serves past its window.
 
 An encoder-decoder model is not served: the reference's fixed-batch
 prefill calls the model without the encoder's frames and crashes, and its
@@ -73,8 +75,7 @@ from repro_torch.core import verify as verify_mod
 from repro_torch.core import wire as wire_mod
 from repro_torch.core.pages import PageAllocator
 from repro_torch.models import model as model_mod
-from repro_torch.models.attention import (PagedSpec, sanitize_page_table,
-                                          window)
+from repro_torch.models.attention import PagedSpec, sanitize_page_table
 from repro_torch.models.transformer import SEQ_BLOCKS
 
 
@@ -133,12 +134,6 @@ class StatefulModelError(ValueError):
     with sequential state."""
 
 
-class WindowWrapError(ValueError):
-    """A sliding-window model was asked to serve with a cache capacity
-    past its window: the ring would wrap, and a wrapped ring gives wrong
-    logits after a rejected draft."""
-
-
 ENCDEC_REFUSAL = ("encoder-decoder models are not served (the engine has "
                   "no encoder frames to prefill with); run them through "
                   "the model API or training")
@@ -148,16 +143,32 @@ class EncoderDecoderServingError(ValueError):
     """An encoder-decoder model was asked to serve."""
 
 
-def check_servable(cfg: ModelConfig, cache_len: int):
-    """Refuse an encoder-decoder model, and speculative rounds on a ring
-    that can wrap."""
+def check_servable(cfg: ModelConfig):
+    """Refuse an encoder-decoder model."""
     if cfg.n_encoder_layers:
         raise EncoderDecoderServingError(f"{cfg.name}: {ENCDEC_REFUSAL}")
-    W = window(cfg)
-    if W and cache_len > W:
-        raise WindowWrapError(
-            f"{cfg.name}: cache capacity {cache_len} exceeds the sliding "
-            f"window {W}; a wrapped ring cannot roll back rejected drafts")
+
+
+def ring_spare(L_max: int) -> int:
+    """Slots a served sliding-window ring holds past W, for both actors.
+
+    A key written at position r lands on ring slot r % R (R = W + spare),
+    where a query at q reads it as position r - R; the window mask drops
+    it whenever r - R <= q - W, i.e. r <= q + spare.  So the spare must
+    cover how far past the lowest query still to come any write reaches:
+      - a lockstep draft writes pos .. pos + L_max, and the next draft
+        (or a replay of this one, at the same pos) starts at or after
+        pos: L_max;
+      - the cloud's verify writes pos .. pos + L_max in one call, all of
+        its queries at or after pos: L_max;
+      - a pipelined speculative draft (``draft_speculative``) starts at
+        pos + n_live + 1 <= pos + L_max + 1 and writes L_max + 1
+        positions, up to pos + 2 L_max + 1, while the slot's replay
+        registers still hold pos: a later call that drafts another slot
+        replays this one from pos.  2 L_max + 1.
+    With one slot fewer, that replay reads the speculative draft's last
+    key as position pos + 1 - W, inside its window."""
+    return 2 * L_max + 1
 
 
 def is_stateful(cfg: ModelConfig) -> bool:
@@ -256,6 +267,7 @@ class EdgeDraftEngine:
         self.dc, self.model = dc, model
         self.stateful = is_stateful(dc)
         self.m, self.e, self.fmt = method, engine, fmt
+        self.spare = ring_spare(engine.L_max)
         self.seed = seed
         self.V = dc.vocab
         self.device = resolve_device(device)
@@ -364,19 +376,20 @@ class EdgeDraftEngine:
 
     def init_slots(self, n_slots: int, cache_len: int,
                    spec: Optional[PagedSpec]):
-        check_servable(self.dc, cache_len)
+        check_servable(self.dc)
         self._alloc_state(n_slots)
         self.cache_len = cache_len
         self.dcache = model_mod.init_cache(self.model, n_slots, cache_len,
-                                           paged=spec)
+                                           paged=spec, spare=self.spare)
 
     def prefill_batch(self, prompts, cache_len: int):
-        check_servable(self.dc, cache_len)
+        check_servable(self.dc)
         B, S0 = prompts.shape
         self._alloc_state(B)
         self.cache_len = cache_len
         _, self.dcache = model_mod.prefill(self.model, prompts[:, :-1],
-                                           cache_len=cache_len)
+                                           cache_len=cache_len,
+                                           spare=self.spare)
         self.x_last = prompts[:, -1].clone()
         self.pos = torch.full((B,), S0 - 1, dtype=torch.int64,
                               device=self.device)
@@ -387,7 +400,8 @@ class EdgeDraftEngine:
         """Prefill ``prompt`` (1-D int64 on the device) into ``slot``."""
         S0 = int(prompt.shape[0])
         _, cache1 = model_mod.prefill(self.model, prompt[None, :-1],
-                                      cache_len=self.cache_len)
+                                      cache_len=self.cache_len,
+                                      spare=self.spare)
         model_mod.write_prefill_to_slot(self.dc, self.dcache, cache1, slot,
                                         pt_row, S0 - 1)
         key = row_key(seed, 0, self.device)
@@ -605,6 +619,7 @@ class CloudVerifyEngine:
         self.tc, self.model = tc, model
         self.stateful = is_stateful(tc)
         self.m, self.e, self.fmt = method, engine, fmt
+        self.spare = ring_spare(engine.L_max)
         self.seed = seed
         self.V = tc.vocab
         self.device = resolve_device(device)
@@ -637,19 +652,20 @@ class CloudVerifyEngine:
 
     def init_slots(self, n_slots: int, cache_len: int,
                    spec: Optional[PagedSpec]):
-        check_servable(self.tc, cache_len)
+        check_servable(self.tc)
         self._alloc_state(n_slots)
         self.cache_len = cache_len
         self.tcache = model_mod.init_cache(self.model, n_slots, cache_len,
-                                           paged=spec)
+                                           paged=spec, spare=self.spare)
 
     def prefill_batch(self, prompts, cache_len: int):
-        check_servable(self.tc, cache_len)
+        check_servable(self.tc)
         B, S0 = prompts.shape
         self._alloc_state(B)
         self.cache_len = cache_len
         _, self.tcache = model_mod.prefill(self.model, prompts[:, :-1],
-                                           cache_len=cache_len)
+                                           cache_len=cache_len,
+                                           spare=self.spare)
         self.x_last = prompts[:, -1].clone()
         self.pos = torch.full((B,), S0 - 1, dtype=torch.int64,
                               device=self.device)
@@ -659,7 +675,8 @@ class CloudVerifyEngine:
               wire_codec: Optional[str] = None):
         S0 = int(prompt.shape[0])
         _, cache1 = model_mod.prefill(self.model, prompt[None, :-1],
-                                      cache_len=self.cache_len)
+                                      cache_len=self.cache_len,
+                                      spare=self.spare)
         model_mod.write_prefill_to_slot(self.tc, self.tcache, cache1, slot,
                                         pt_row, S0 - 1)
         self.slot_codec[slot] = wire_codec or self.fmt.codec
@@ -845,6 +862,12 @@ class EdgeEngineBase:
     def free_pages(self) -> int:
         assert self.paged
         return self.alloc.free_pages
+
+    def ensure_slot_capacity(self, slot: int, n_tokens: int) -> bool:
+        """Per-slot page growth (event-driven serving)."""
+        if not self.paged:
+            return True
+        return self.alloc.ensure(slot, n_tokens)
 
     def ensure_round_capacity(self) -> bool:
         """Grow every active slot's page table to cover this round's

@@ -57,6 +57,11 @@ def reciprocal(c: float) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
+def slq_distortion_bound(K, ell):
+    """Theorem 1's lattice-distortion term K/(4ℓ), float32."""
+    return torch.as_tensor(K, dtype=torch.float32) / (4.0 * ell)
+
+
 def tv_distance(p, q, dim=-1):
     """Total-variation distance 0.5 * sum |p - q| in float32."""
     return 0.5 * (p.float() - q.float()).abs().sum(dim)

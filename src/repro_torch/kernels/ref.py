@@ -74,6 +74,12 @@ def topk_threshold_ref(q_padded, K: int, iters: int = 40):
     return torch.cat([lo, hi], -1)
 
 
+def kth_largest_ref(q, K: int):
+    """Sort-based K-th largest of each row (an independent oracle for
+    the bisection; the tests' only)."""
+    return torch.topk(q, K).values[..., -1]
+
+
 def select_n_ref(v, elig, n):
     """The selection ``repro.kernels.sqs_fused._select_n`` makes, by rank:
     the ``n`` largest eligible entries of each row of v, ties broken

@@ -9,8 +9,8 @@ KV caches come in two layouts, each in the compute dtype or in int8 with
 per-(position, head) f32 scale tables:
 
   dense   (B, Sc, nkv, hd) per slot; a sliding-window layer's is a ring
-          of Sc = min(capacity, W) slots, position p at slot p % Sc, keys
-          roped when written;
+          of Sc = min(capacity, W + spare) slots, position p at slot
+          p % Sc, keys roped when written;
   paged   a pool of (n_pages + 1, page_size, nkv, hd) pages shared by
           every slot, addressed through a per-slot page table
           (``core.pages.PageAllocator``).  ``attn_extend`` takes the
@@ -31,13 +31,17 @@ rolled back by position like KV.  Prefill and training expand the latent
 to per-head keys and values (``mla_full``); decode and verify attend in
 latent space with W_uk absorbed into the query (``mla_extend``).
 
-A sliding-window ring cannot survive a speculative rollback once it has
-wrapped: the rejected drafts of a round overwrite the keys of positions
-W back, which later queries still see, and ``_extend_core`` labels each
-slot by the newest position, so the overwritten keys pass the window mask
-as the old ones.  The model mirrors the reference's ring as it is; the
-engine refuses speculative rounds on a ring that can wrap
-(``core.engine.WindowWrapError``).
+A ring of exactly W slots (``spare=0``, the reference's) cannot survive
+a speculative rollback once it has wrapped: the rejected drafts of a
+round overwrite the keys of positions W back, which later queries still
+see, and ``_extend_core`` labels each slot by the newest position, so
+the overwritten keys pass the window mask as the old ones.  The model
+keeps that ring at its default ``spare=0``, bit for bit the reference's.
+The engine builds its rings ``spare`` slots longer
+(``core.engine.ring_spare``): a key written at most ``spare`` positions
+past every query still to read it lands on the slot of a position W or
+more behind that query, which the window mask drops, so what a rejected
+draft writes is never read as an older key.
 
 The extend math ``_extend_core`` contracts bf16 operands with float32
 accumulation and keeps float32 scores, as the reference's
@@ -102,6 +106,10 @@ class PagedSpec:
     def trash_page(self) -> int:
         return self.n_pages
 
+    @property
+    def tokens_per_slot_max(self) -> int:
+        return self.max_pages_per_slot * self.page_size
+
 
 def paged_eligible(cfg: ModelConfig) -> bool:
     """Which attention layers can live in the page pool: standard GQA
@@ -115,11 +123,11 @@ def window(cfg: ModelConfig) -> int:
     return cfg.sliding_window if cfg.attention == "sliding" else 0
 
 
-def cache_capacity(cfg: ModelConfig, seq: int) -> int:
+def cache_capacity(cfg: ModelConfig, seq: int, spare: int = 0) -> int:
     """Positions a GQA cache of ``seq`` positions holds: a sliding
-    window's ring is at most W slots."""
+    window's ring is at most W + ``spare`` slots."""
     W = window(cfg)
-    return min(seq, W) if W else seq
+    return min(seq, W + spare) if W else seq
 
 
 class Attention(nn.Module):
@@ -266,16 +274,19 @@ def _int8(cfg: ModelConfig) -> bool:
     return cfg.kv_cache_dtype == "int8"
 
 
-def make_kv_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device):
+def make_kv_cache(cfg: ModelConfig, batch: int, seq: int, dtype, device,
+                  spare: int = 0):
     """One layer's dense cache, zero-filled: a sliding-window layer's ring
-    holds min(seq, W) slots; an MLA layer's latent and rope key stay in
-    the compute dtype (and at ``seq`` positions), as the reference's."""
+    holds min(seq, W + spare) slots; an MLA layer's latent and rope key
+    stay in the compute dtype (and at ``seq`` positions), as the
+    reference's."""
     if cfg.is_mla:
         return {"latent": torch.zeros((batch, seq, cfg.kv_lora_rank),
                                       dtype=dtype, device=device),
                 "k_rope": torch.zeros((batch, seq, cfg.rope_head_dim),
                                       dtype=dtype, device=device)}
-    shp = (batch, cache_capacity(cfg, seq), cfg.n_kv_heads, cfg.head_dim)
+    shp = (batch, cache_capacity(cfg, seq, spare), cfg.n_kv_heads,
+           cfg.head_dim)
     if _int8(cfg):
         return {"k": torch.zeros(shp, dtype=torch.int8, device=device),
                 "v": torch.zeros(shp, dtype=torch.int8, device=device),
@@ -372,22 +383,25 @@ def attn_full(cfg: ModelConfig, p: Attention, x, positions):
     return _out(o, p.w_o)
 
 
-def attn_prefill(cfg: ModelConfig, p: Attention, x, positions):
+def attn_prefill(cfg: ModelConfig, p: Attention, x, positions,
+                 spare: int = 0):
     """Causal (and windowed) attention over the prompt; returns (out, cache
-    leaves): {"k", "v"}, or int8 {"k", "v", "k_scale", "v_scale"}.  A
-    prompt longer than the window W leaves the ring of its last W roped
-    keys, position p at slot p % W."""
+    leaves): {"k", "v"}, or int8 {"k", "v", "k_scale", "v_scale"}.  With
+    a window W the cache is a ring of R = W + ``spare`` slots: a prompt
+    longer than R leaves its last R roped keys, position p at slot p % R;
+    a shorter one keeps every key at slot p."""
     q, k, v = _qkv(cfg, p, x, positions)
     W = window(cfg)
     positions = pos2d(positions)
     o = masked_attention(q, k, v, positions, positions, causal=True,
                          window=W)
-    if W and x.shape[1] > W:
-        slots = positions[:, -W:] % W
-        ring_k, ring_v = torch.zeros_like(k[:, -W:]), torch.zeros_like(
-            v[:, -W:])
-        k = write_rows(ring_k, slots, k[:, -W:])
-        v = write_rows(ring_v, slots, v[:, -W:])
+    R = W + spare
+    if W and x.shape[1] > R:
+        slots = positions[:, -R:] % R
+        ring_k, ring_v = torch.zeros_like(k[:, -R:]), torch.zeros_like(
+            v[:, -R:])
+        k = write_rows(ring_k, slots, k[:, -R:])
+        v = write_rows(ring_v, slots, v[:, -R:])
     if _int8(cfg):
         k8, ks = _quantize_heads(k)
         v8, vs = _quantize_heads(v)

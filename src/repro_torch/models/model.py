@@ -8,13 +8,13 @@
     forward_logits(model, tokens, positions=None,
                    enc_embeds=None)                -> logits (B, S, V)
     prefill(model, tokens, cache_len, positions=None,
-            enc_embeds=None)                       -> (last_logits, cache)
+            enc_embeds=None, spare=0)              -> (last_logits, cache)
     extend_step(model, tokens, cache, pos,
                 collect_traj=False)                -> (logits (B,L,V), cache,
                                                      traj)
     decode_step(model, token, cache, pos)          -> (logits (B,V), cache)
     init_cache(model, batch, seq, paged=None,
-               enc_seq=0)                          -> empty serving cache
+               enc_seq=0, spare=0)                 -> empty serving cache
     set_page_tables(cache, pt)                     -> cache, tables refreshed
     write_prefill_to_slot(cfg, big, small, slot,
                           ...)                     -> prompt into one slot
@@ -24,12 +24,14 @@ The layers are the dense prefix layers, then the body
 layer, of the layer's kind.  An attention layer holds dense {"k", "v"}
 of (B, Sc, nkv, hd) tensors, plus f32 "k_scale"/"v_scale" (B, Sc, nkv)
 when ``cfg.kv_cache_dtype == "int8"``, Sc the capacity
-(``attention.cache_capacity``: min(cache_len, W) for a sliding window,
-whose cache is a ring); an MLA layer holds {"latent" (B, cache_len,
-rank), "k_rope" (B, cache_len, rhd)}; a paged attention layer holds
-pools (n_pages + 1, page_size, ...) of the KV leaves and its slots'
-"page_table" (B, max_pages).  A stateful layer (Mamba, mLSTM, sLSTM)
-holds its recurrent state, (B, ...) leaves of ``ssm.make_state``.
+(``attention.cache_capacity``: min(cache_len, W + spare) for a sliding
+window, whose cache is a ring; ``spare`` 0 is the reference's ring of W,
+the engine passes ``core.engine.ring_spare``); an MLA layer holds
+{"latent" (B, cache_len, rank), "k_rope" (B, cache_len, rhd)}; a paged
+attention layer holds pools (n_pages + 1, page_size, ...) of the KV
+leaves and its slots' "page_table" (B, max_pages).  A stateful layer
+(Mamba, mLSTM, sLSTM) holds its recurrent state, (B, ...) leaves of
+``ssm.make_state``.
 ``extend_step`` writes KV into the cache in place, dispatching on
 "page_table", and replaces each stateful layer's state with the new
 one (a new tensor: state tensors are never written in place); with
@@ -187,16 +189,16 @@ def forward_logits(model: Transformer, tokens, positions=None,
 
 @torch.no_grad()
 def prefill(model: Transformer, tokens, cache_len: Optional[int] = None,
-            positions=None, enc_embeds=None):
+            positions=None, enc_embeds=None, spare: int = 0):
     """Run the prompt (B, S) and build the decode cache: attention caches
-    padded with zeros out to ``attention.cache_capacity(cfg, cache_len)``
-    positions (a sliding window's wrapped ring is already full), stateful
-    layers' state after the prompt, and an encoder-decoder model's cross
-    K/V of ``enc_embeds`` in every body layer's dict.  Returns
-    (last_logits (B, V), cache)."""
+    padded with zeros out to ``attention.cache_capacity(cfg, cache_len,
+    spare)`` positions (a sliding window's ring of that many slots, full
+    already when the prompt is longer), stateful layers' state after the
+    prompt, and an encoder-decoder model's cross K/V of ``enc_embeds`` in
+    every body layer's dict.  Returns (last_logits (B, V), cache)."""
     B, S = tokens.shape
     cfg = model.cfg
-    cap = attn_mod.cache_capacity(cfg, cache_len or S)
+    cap = attn_mod.cache_capacity(cfg, cache_len or S, spare)
     if positions is None:
         positions = _positions(cfg, B, S, 0, tokens.device)
     enc_out = _encode(model, enc_embeds)
@@ -206,7 +208,7 @@ def prefill(model: Transformer, tokens, cache_len: Optional[int] = None,
         kv = None
         if enc_out is not None and i >= cfg.n_prefix_layers:
             kv = attn_mod.cross_kv(cfg, blk.cross, enc_out)
-        x, c = blk.prefill(x, positions, kv)
+        x, c = blk.prefill(x, positions, kv, spare)
         if not blk.stateful:
             grown = {}
             for name, t in c.items():
@@ -246,8 +248,9 @@ def extend_step(model: Transformer, tokens, cache, pos,
 
 def init_cache(model: Transformer, batch: int, seq: int,
                paged: Optional[attn_mod.PagedSpec] = None,
-               enc_seq: int = 0):
-    """Empty serving cache: dense KV for attention layers, zero states for
+               enc_seq: int = 0, spare: int = 0):
+    """Empty serving cache: dense KV for attention layers (a sliding
+    window's ring of min(seq, W + ``spare``) slots), zero states for
     stateful ones.  ``paged``: every eligible body attention layer (full
     GQA, ``attention.paged_eligible``) gets a shared page pool + per-slot
     page table instead of dense (B, seq, ...) KV; prefix layers, MLA and
@@ -266,7 +269,7 @@ def init_cache(model: Transformer, batch: int, seq: int,
                                                       model.dtype, dev))
         else:
             cache.append(attn_mod.make_kv_cache(cfg, batch, seq,
-                                                model.dtype, dev))
+                                                model.dtype, dev, spare))
         if model.encoder is not None and i >= cfg.n_prefix_layers:
             for name in CROSS_LEAVES:
                 cache[-1][name] = torch.zeros(

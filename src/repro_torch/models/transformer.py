@@ -98,10 +98,11 @@ class Block(nn.Module):
                               dropless)
         return x + settled(y), aux
 
-    def prefill(self, x, positions, cross_kv=None):
-        """Returns (x, cache leaves): the prompt's {"k", "v"} (MLA:
-        {"latent", "k_rope"}), or the recurrent state after the prompt.
-        A decoder block attends to ``cross_kv``, its cross K/V."""
+    def prefill(self, x, positions, cross_kv=None, spare: int = 0):
+        """Returns (x, cache leaves): the prompt's {"k", "v"} (a sliding
+        window's ring of W + ``spare`` slots; MLA: {"latent",
+        "k_rope"}), or the recurrent state after the prompt.  A decoder
+        block attends to ``cross_kv``, its cross K/V."""
         h = rmsnorm(x, self.norm1, self.cfg.rms_eps)
         if self.stateful:
             a, c, _ = ssm.seq(self.cfg, self.block_type, self.mixer, h)
@@ -109,7 +110,8 @@ class Block(nn.Module):
             a, c = attn.mla_full(self.cfg, self.attn, h, positions,
                                  return_cache=True)
         else:
-            a, c = attn.attn_prefill(self.cfg, self.attn, h, positions)
+            a, c = attn.attn_prefill(self.cfg, self.attn, h, positions,
+                                     spare)
         x = x + settled(a)
         if cross_kv is not None:
             x = self._cross(x, cross_kv)

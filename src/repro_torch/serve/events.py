@@ -275,7 +275,7 @@ class EventDrivenLoop:
         self.cloud_queue: List[int] = []
         self.obs = sess.obs
         self.rsm = RoundStateMachine(self.eng, self.sched,
-                                     sess.cfg.speculate, sess.cache_len,
+                                     cfg_speculate(sess.cfg), sess.cache_len,
                                      obs=sess.obs)
         self.slots = self.rsm.slots
         self.reserved_pages = 0
@@ -471,3 +471,9 @@ class EventDrivenLoop:
                        (slot, out.spec_round))
         else:
             self._start_draft(slot)
+
+
+def cfg_speculate(cfg) -> bool:
+    """Whether a serving config asks for optimistic continuation (on
+    when the config has no ``speculate`` field)."""
+    return getattr(cfg, "speculate", True)

@@ -134,9 +134,10 @@ class _Session:
             codec=engine.wire_codec)
         if is_stateful(tc):
             raise TransportError(TCP_TARGET_REFUSAL)
-        # before the target is built: an encoder-decoder target (or a
-        # ring that would wrap) is refused by name
-        check_servable(tc, config["cache_len"])
+        # before the target is built: an encoder-decoder target is
+        # refused by name (a sliding-window target's ring takes its spare
+        # from the HELLO's L_max, in CloudVerifyEngine.init_slots)
+        check_servable(tc)
         self.cloud = CloudVerifyEngine(tc, build_target(tc, seed + 1, device),
                                        method, engine, fmt, seed, device)
         self.cloud.init_slots(config["n_slots"], config["cache_len"], None)
