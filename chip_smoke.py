@@ -10,7 +10,13 @@ Phases:
      main path's (4, 151936), with the differing rows counted and
      classified, and the select's paths (cluster sweeps then compaction
      on near-uniform rows, never compacting on all-equal rows, the K-SQS
-     index trim on tied logits), and at the vocabularies of the other
+     index trim on tied logits), the top-K search's lo equal to the K-th
+     largest probability (within ULP_RULE ulps of the twin's) at T 1 and
+     0.5 and, at logit std 3 and 8, T 0.2 and 0.05 (where the
+     reference's search stops at max q * 2^-40), timed there by graph
+     replay, and rows whose K-th value underflows to 0 with their
+     nonzero probabilities past the first K indices (the support holds
+     them), and at the vocabularies of the other
      dense configs (granite-3-8b's 49155, padded to 49280; stablelm-12b's
      100352; deepseek-7b's 102400) and of the paper's pair (gptneo-1.3b's
      50257, padded to 50304); the two flash-decode kernels over
@@ -25,11 +31,13 @@ Phases:
      draft call under torch.profiler (device-busy share, SQS kernel time);
   4. SQS kernel, twin and library timings at the main path's inputs, with
      each kernel's cluster plan and the barriers of each call;
-  5. continuous-batching serving (``ServeSession.run_trace``) of one
-     Poisson trace at full width: dense lockstep, paged lockstep, paged
-     pipelined with speculation, and int8 paged against int8 dense, with
-     per-request streams equal across them, the launch counts of that
-     path and the measured per-round t_slm / t_llm;
+  5. continuous-batching serving (``ServeSession.run_trace``) of one Poisson
+     trace (SERVE_REQUESTS requests on SLOTS slots) at full width: dense
+     lockstep, paged lockstep, paged pipelined with speculation, and int8
+     paged against int8 dense, with per-request streams equal across them,
+     a request admitted into a slot that another had finished in (each of
+     the first three), the launch counts of that path and the measured
+     per-round t_slm / t_llm;
   6. the flash-decode kernels on the page pools that serving wrote (4
      slots admitted through the slot API with prompts of 17 to 4001
      tokens, two paged rounds): against their twins and each other (paged
@@ -40,22 +48,22 @@ Phases:
      4096 positions (pos drawn from [2048, 4095]) in 16-position pages
      permuted over a pool of 8192 + 1 pages, at the target's attention
      widths, bf16 and int8, checked and timed as in phase 6;
-  8. two processes on the card: ``python -m repro_torch.launch.cloud``
-     as a child process, and an ``EdgeClient`` in this one serving a
-     seeded 2-cell Poisson trace at full ``qwen2.5-3b`` width, C-SQS,
-     lockstep with codec v1 and verdict batching, then pipelined with
+  8. two processes on the card: ``python -m repro_torch.launch.cloud`` as a
+     child process, and an ``EdgeClient`` in this one serving a seeded 2-cell
+     Poisson trace (SERVE_REQUESTS requests) at full ``qwen2.5-3b`` width,
+     C-SQS, lockstep with codec v1 and verdict batching, then pipelined with
      codec v2 and speculation, obs on both legs: the streams equal the
-     in-process simulator's on the same weights, with the measured RPC
-     round (mean, p99), the server's t_llm, the measured makespan beside
-     the simulator's modeled one and the server's counters (0 wire
-     decode errors);
+     in-process simulator's on the same weights, a request admitted into a
+     freed slot over TCP, with the measured RPC round
+     (mean, p99), the server's t_llm, the measured makespan beside the
+     simulator's modeled one and the server's counters (0 wire decode errors);
   9. the serving entry point (``repro_torch.launch.serve.main``) with
      ``--transport tcp --trace-out --metrics-out`` against the same
      server, lockstep: the Theorem-1 decomposition must reconcile and
      the modeled and wall-clock spans be present; then the server is
      sent SIGTERM and must print its shutdown line and exit 0;
- 10. ``qwen2-moe-a2.7b`` at full width (24 layers, 60 routed top-4 + 4
-     shared experts, ~14.3 B parameters) with its 2x draft, after the
+ 10. ``qwen2-moe-a2.7b`` at full width (60 routed top-4 + 4 shared
+     experts) cut from 24 to MOE_LAYERS layers with its 2x draft, after the
      qwen2.5-3b models are freed: fixed-batch K-SQS and C-SQS rounds at
      the phase-3 settings, both SQS kernels against their twins at the
      draft's next-step logits, a short trace served lockstep and
@@ -73,11 +81,13 @@ Phases:
      (c) served from those checkpoints through
      ``repro_torch.launch.serve.main``: fixed-batch K-SQS and C-SQS at
      the phase-3 settings (accepted tokens in every method, both SQS
-     kernels launched at Vp 50304) and a short pipelined trace.
+     kernels launched at Vp 50304, the dropped mass a draft printed) and
+     a short pipelined trace; then phase 16 on the same checkpoints.
 
  12. the SSM and hybrid family, after the pair's models are freed: (a)
-     full-width ``xlstm-1.3b`` (48 layers, 7 mLSTM : 1 sLSTM, d 2048, 4
-     heads, mLSTM width 4096, V 50304) with its 2x draft, seeded bf16
+     full-width ``xlstm-1.3b`` (7 mLSTM : 1 sLSTM, d 2048, 4 heads, mLSTM
+     width 4096, V 50304) cut from 48 to SSM_LAYERS layers with its 2x
+     draft, seeded bf16
      weights, fixed-batch rounds of all four methods at the phase-3
      settings, both SQS kernels against their twins at the draft's
      next-step logits, t_slm / t_llm / accepted tokens, one K-SQS draft
@@ -98,8 +108,9 @@ Phases:
      loop; then a pipelined trace and a TCP handshake with a stateful
      target, each refused, with the peak memory of the phase.
  13. MLA with its dense prefix layer, and the sliding window, after the
-     SSM models are freed: (a) full-width ``deepseek-v2-lite-16b`` (27
-     layers, the first a dense MLP layer, MLA with kv_lora 512 and
+     SSM models are freed: (a) full-width ``deepseek-v2-lite-16b`` cut
+     from 27 to MLA_LAYERS layers (the first a dense MLP layer, MLA with
+     kv_lora 512 and
      rope_hd 64, 64 routed top-6 + 2 shared experts, V 102400) with its
      2x draft, seeded bf16 weights: fixed-batch rounds of all four
      methods at the phase-3 settings, both SQS kernels against their
@@ -108,12 +119,13 @@ Phases:
      time, the MoE layers' share), and a 4-request trace served dense
      lockstep, paged lockstep and paged pipelined with equal streams;
      (b) the ring of ``for_shape(qwen2.5-3b, long_500k)`` (W 8192) at
-     full width: a prompt RING_PAST positions past W prefilled (the ring
+     full width, cut from 36 to WINDOW_LAYERS layers for (b)-(d) (its
+     draft to 6): a prompt RING_PAST positions past W prefilled (the ring
      wrapped), RING_STEPS decode steps through it against the windowed
      teacher-forced logits, in bf16 and in float32, each within its
      bound of RING_ATOL, and the reference's ring check at the float32
-     smoke variant (W 8) at RING_SMOKE_ATOL; (c) one K-SQS round served
-     on the full-width ring at a capacity it cannot wrap, then the pair
+     smoke variant (W 8) at RING_SMOKE_ATOL; (c) ROUNDS K-SQS rounds
+     served on the ring at a capacity it cannot wrap, then the pair
      served past the wrap on the engine's rings of W + ring_spare(L_MAX)
      slots: prompts of W + WRAP_PAST + 1 tokens (B 4), K-SQS rounds
      (which reject) and uncompressed rounds at WRAP_BUDGET bits (which
@@ -121,7 +133,7 @@ Phases:
      SQS launches counted and t_slm / t_llm printed beside the round
      before the wrap, and each row's target and draft caches held
      against a teacher-forced windowed recompute of its committed tokens
-     at RING_ATOL; (d) the full-width float32 pair at W SMALL_W, where
+     at RING_ATOL; (d) the float32 pair at W SMALL_W, where
      one lost key shows, served past its wrap with the engine's spare
      (fixed batch and a pipelined trace, within RING_ATOL["float32"])
      and with none (fixed batch, the target past it).
@@ -130,7 +142,8 @@ Phases:
      freed: (a) ``qwen2-vl-72b`` at full width (d 8192, 64/8 heads,
      d_ff 29568, V 152064, M-RoPE sections (16, 24, 24), qkv biases) cut
      from 80 to VL_LAYERS layers (33.07 GB bf16; 145.4 GB does not fit)
-     with its full-depth 2x draft (40 layers, 20.3 GB): fixed-batch rounds
+     with its 2x draft cut in the same proportion, from 40 to
+     VL_DRAFT_LAYERS layers (d 4096): fixed-batch rounds
      of all four methods at the phase-3 settings, both SQS kernels against
      their twins at the draft's next-step logits (Vp 152064), one K-SQS
      draft call and one verify forward under torch.profiler, a 4-request
@@ -176,12 +189,26 @@ Phases:
      equal to the dry run's, no whole mixer gather, and the local step's
      time by CUDA events (compute without communication); (c)
      ``examples/torch_quickstart.py``
-     in process (both SQS kernels launched) and
+     in process (both SQS kernels launched) and, beside it,
      ``examples/torch_train_draft_slm.py --steps 4`` as a child process.
+ 16. the paper's Fig. 2, run after phase 11 (c): (b) first, then (a)
+     alone: (a) ``examples/torch_temperature_crossover.py`` with its
+     defaults as a child process (the smoke pair trained on the card, 12
+     rounds a sweep; exit 0 and all 10 rows); (b) ``torch_pair.crossover`` on
+     phase 11's full-width pair at B CROSS_BATCH, CROSS_ROUNDS rounds a
+     sweep after 2 warmup rounds, five temperatures, K-SQS and C-SQS, on
+     the fused kernels and then on plain torch (the same prompts): per
+     temperature and method the latency per batch, resampling and accept
+     rates, bits, mean K, the largest dropped mass of a draft and the
+     winner; the phase fails if a K-SQS draft on the kernel path drops
+     FAULT_DROP of its mass where torch.topk's support on the same q
+     drops less than TOPK_DROP, and prints the mass the reference's
+     search would lose on the same q at K 16 and 64.
 
 Every phase that drives a path sets the kernels' launch counts to 0
 just before it and reads them just after; the SQS rows of the kernels
-line add the launches of phases 3, 5, 8, 9, 10, 11, 12, 13, 14 and 15.
+line add the launches of phases 3, 5, 8, 9, 10, 11, 12, 13, 14, 15 and
+16.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -222,8 +249,10 @@ BATCH, PROMPT_LEN, L_MAX, ROUNDS = 4, 16, 8, 3
 # (tests/test_kernels.py): f32 and int8 against its twin, a bf16 cache,
 # int8 against the float oracle
 ATOL_F32, ATOL_BF16, ATOL_INT8_ORACLE = 2e-5, 5e-3, 0.02
-# serving: slots, page size, and the phase-6 prompt lengths / capacity
-SLOTS, PAGE = 4, 16
+# serving: slots, page size, the requests of the phase-5 and phase-8
+# traces (more than the slots: some queue and are admitted into a slot
+# that a finished request freed), and the phase-6 prompt lengths / capacity
+SLOTS, PAGE, SERVE_REQUESTS = 4, 16, 6
 LONG_PROMPTS, LONG_CACHE = (17, 1025, 2561, 4001), 4112
 # phase 7: slots, positions per slot, pool pages (+1 trash), pos range
 POOL_SLOTS, POOL_CAP, POOL_PAGES = 32, 4096, 8192
@@ -235,6 +264,9 @@ DENSE_VOCAB_ARCHS = ("granite-3-8b", "stablelm-12b", "deepseek-7b",
 # phases 8-9: two-process serving, 2 cells over the phase-5 slots
 TCP_CELLS = 2
 MOE_ARCH = "qwen2-moe-a2.7b"
+# phase 10 runs it cut from 24 to MOE_LAYERS layers at full width (its
+# draft 4 of 12): every layer is the same routed + shared MoE block
+MOE_LAYERS = 8
 # phase 11: the paper's pair; (a) train steps a run, their batch and
 # sequence, and the bound on |loss(microbatches 1) - loss(microbatches 2)|
 # a step (bf16 GEMMs of other shapes round otherwise); (b) target and
@@ -261,6 +293,14 @@ class CheckFailed(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise CheckFailed(msg)
+
+
+def depth_cut(cfg, n_layers):
+    """``cfg`` at its published width cut to ``n_layers`` layers (named
+    ``<name>-d<n_layers>``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, name=f"{cfg.name}-d{n_layers}",
+                               n_layers=n_layers)
 
 
 def free_cuda():
@@ -431,6 +471,85 @@ def compare_sqs(lp, beta2, it, ell, exact_k, label, beta2_twin=None):
     return diff, bad
 
 
+def check_kth(tau, q, K, label):
+    """The top-K search's lo is the K-th largest of the twin's q (the
+    kernel's q may sit ULP_RULE ulps off it: another summation order for
+    the softmax denominator), 0 where that underflows, and hi the float32
+    after lo."""
+    import torch
+    kth = torch.topk(q, K, dim=-1).values[:, -1]
+    lo, hi = tau[:, 0], tau[:, 1]
+    check(bool(near(lo.cpu(), kth.cpu()).all()),
+          f"topk_threshold lo is not the K-th value ({label}): "
+          f"{lo.tolist()} vs {kth.tolist()}")
+    check(bool(torch.equal(hi, torch.nextafter(lo, torch.full_like(
+        lo, math.inf)))), f"topk_threshold hi is not the float after lo "
+          f"({label}): {tau.tolist()}")
+    return kth
+
+
+# low temperatures for the top-K search: the K-th value lies below max q *
+# 2^-40 (the reference's bisection floor) at logit std 3 and 8; the shapes
+# and K at which it is held and timed (CUDA-graph replay at the main path's)
+LOW_TEMPS, LOW_STDS = (0.2, 0.05), (3.0, 8.0)
+LOW_SHAPES, LOW_KS = ((4, 151936), (3, 50257)), (16, 64)
+
+
+def topk_low_temperature(logits, dev):
+    """Phase 2's low-temperature rows: lo equal to torch.topk's K-th value
+    within ULP_RULE at T 0.2 and 0.05 and logit std 3 and 8, K-SQS kernel
+    against twin there, and rows whose K-th value underflows to 0 with
+    their nonzero probabilities past the first K indices (the support
+    must hold them).  Returns the rows not excused."""
+    import torch
+    from repro_torch.kernels import ref, sqs_fused as k
+    from repro_torch.kernels.ops import pad_logits
+    n_bad = 0
+    for (B, V), temp, std, K in ((s, t, d, kk) for s in LOW_SHAPES
+                                 for t in LOW_TEMPS for d in LOW_STDS
+                                 for kk in LOW_KS):
+        lp, it = logits(B, V, scale=std), 1.0 / temp
+        q = ref.softmax_padded(lp, it)
+        info = torch.zeros((B, 4), dtype=torch.int32, device=lp.device)
+        tau = k.topk_threshold(lp, K, inv_temp=it, info=info)
+        label = f"B={B} V={V} K={K} T={temp} std={std}"
+        kth = check_kth(tau, q, K, label)
+        floor = q.amax(-1) * 2.0 ** -40
+        nd, nb = compare_sqs(lp, tau, it, 100, K, f"sqs_topk {label}",
+                             ref.topk_threshold_ref(q, K))
+        n_bad += nb
+        ms = graph_ms(lambda: k.topk_threshold(lp, K, inv_temp=it)) \
+            if (B, V) == LOW_SHAPES[0] else None
+        print(f"  sqs_topk {label}: lo == K-th value (within {ULP_RULE} "
+              f"ulps) in every row, {int((kth < floor).sum())} of {B} rows "
+              f"below max q * 2^-40, {int((kth == 0).sum())} with K-th "
+              f"value 0; sqs {nd} differing rows, {nb} unexcused"
+              + (f"; topk_threshold {ms:.4f} ms (graph)" if ms else "")
+              + f"; row 0: {sqs_path(info[0].tolist())}")
+    # K-th value 0 with the nonzero probabilities at high indices: the
+    # reference's trim (the first K of q >= 0 by index) keeps zeros
+    B, V, K = 2, 151936, 64
+    x = torch.full((B, V), -200.0, device=dev)
+    x[:, V - 40:] = torch.linspace(0.0, -30.0, 40, device=dev)
+    lp = pad_logits(x)[0]
+    q = ref.softmax_padded(lp, 1.0)
+    tau = k.topk_threshold(lp, K, inv_temp=1.0)
+    kth = check_kth(tau, q, K, "underflow")
+    nd, nb = compare_sqs(lp, tau, 1.0, 100, K, "sqs_topk underflow",
+                         ref.topk_threshold_ref(q, K))
+    _, mask, stats = k.sqs_fused(lp, tau, inv_temp=1.0, ell=100, exact_k=K)
+    check(bool((kth == 0).all()), f"underflow rows: K-th value {kth}")
+    check(bool(mask[:, V - 40:V].bool().all()), "underflow rows: the "
+          "support misses a nonzero probability")
+    check(bool((stats[:, 0].abs() <= DROPPED_ATOL).all()),
+          f"underflow rows drop {stats[:, 0].tolist()}")
+    print(f"  sqs_topk underflow B={B} V={V} K={K} (40 nonzero "
+          f"probabilities at the last indices): lo {tau[:, 0].tolist()}, "
+          f"support holds all 40, dropped {stats[:, 0].tolist()}; sqs "
+          f"{nd} differing rows, {nb} unexcused")
+    return n_bad + nb
+
+
 def phase_kernels():
     import torch
     from repro_torch.kernels import ref, sqs_fused as k
@@ -470,19 +589,7 @@ def phase_kernels():
                 tau = k.topk_threshold(lp, K, inv_temp=it)
                 q = ref.softmax_padded(lp, it)
                 tau_r = ref.topk_threshold_ref(q, K)
-                # the kernel's q may sit an ulp off the twin's (another
-                # summation order for the softmax denominator)
-                kth = torch.topk(q, K, dim=-1).values[:, -1]
-                eps = ULP_RULE * torch.finfo(torch.float32).eps
-                slack = eps * kth
-                check(bool((tau[:, 0] <= kth + slack).all()
-                           and (kth <= tau[:, 1] + slack).all()),
-                      f"topk_threshold does not bracket the K-th value "
-                      f"(B={B} V={V} K={K}): {tau.tolist()} vs "
-                      f"{kth.tolist()}")
-                check(bool(((q >= tau[:, 0:1] * (1 - eps)).sum(-1) >= K)
-                           .all()),
-                      "count(q >= lo) < K")
+                check_kth(tau, q, K, f"B={B} V={V} K={K} T={temp}")
                 tau_eq = int((tau != tau_r).any(-1).sum())
                 label = f"sqs_topk B={B} V={V} K={K} T={temp}"
                 nd, nb = compare_sqs(lp, tau, it, 100, K, label, tau_r)
@@ -496,6 +603,7 @@ def phase_kernels():
                       f"topk kernel {tk:.4f} ms, twin {tr:.4f} ms, "
                       f"torch.topk {tl:.4f} ms")
                 n_bad += nb
+    n_bad += topk_low_temperature(logits, dev)
     # the +-1 correction at its heaviest: near-uniform rows, beta <= 0 so
     # K = V and delta = -ell (every increment goes through the select);
     # the eligible keys exceed the compaction buffer, so the select sweeps
@@ -989,6 +1097,19 @@ def record_times(eng, log):
     eng.cloud.verify = timed_verify
 
 
+def slot_reuses(label, requests, n_slots):
+    """The admissions into a slot that another request had finished in:
+    (freed by, admitted) request ids.  Where the trace holds more requests
+    than ``n_slots`` there must be one."""
+    reuse = [(a.rid, b.rid) for a in requests for b in requests
+             if a is not b and a.slot == b.slot and a.t_finish is not None
+             and b.t_admit is not None and b.t_admit >= a.t_finish]
+    check(bool(reuse) or len(requests) <= n_slots,
+          f"{label}: {len(requests)} requests on {n_slots} slots, none "
+          f"admitted into a freed slot")
+    return reuse
+
+
 def serve_run(label, dc, dp, tc, tp, dev, trace_cfg, **serve_kw):
     from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
                                          MethodConfig)
@@ -1014,8 +1135,10 @@ def serve_run(label, dc, dp, tc, tp, dev, trace_cfg, **serve_kw):
         check(0 < rep.peak_pages_in_use < rep.n_pages,
               f"{label}: peak pages {rep.peak_pages_in_use} of "
               f"{rep.n_pages}")
+    reuse = slot_reuses(label, rep.requests, cfg["max_batch"])
     summ = rep.summary()
-    print(f"  {label}: {wall:.1f} s wall; " + json.dumps(
+    print(f"  {label}: {wall:.1f} s wall; admitted into a freed slot "
+          f"(freed by, admitted): {reuse}; " + json.dumps(
         {k: summ[k] for k in ("n_requests", "n_finished", "total_tokens",
                               "n_rounds", "makespan_s", "latency_p50_s",
                               "latency_p99_s", "n_preempted", "peak_active",
@@ -1037,8 +1160,9 @@ def phase_serving(dev, tc, dc, tp, dp):
     print(f"phase 5: continuous-batching serving, {tc.name} <- {dc.name}, "
           f"bf16, csqs, L_max {L_MAX}, {SLOTS} slots, fixed clock t_slm "
           f"50 ms / t_llm 30 ms")
-    trace = dict(n_requests=6, rate_rps=4.0, prompt_len=PROMPT_LEN,
-                 min_new_tokens=8, max_new_tokens=12, vocab=tc.vocab, seed=5)
+    trace = dict(n_requests=SERVE_REQUESTS, rate_rps=4.0,
+                 prompt_len=PROMPT_LEN, min_new_tokens=8, max_new_tokens=12,
+                 vocab=tc.vocab, seed=5)
     k.reset_launches()
     da.reset_launches()
     dense = serve_run("dense lockstep", dc, dp, tc, tp, dev, trace)
@@ -1458,6 +1582,7 @@ def tcp_leg(label, dev, tc, dc, tp, dp, port, pipeline, codec, batch,
           f"{label}: {rep.n_finished} finished")
     check(rep.streams() == sim_streams, f"{label}: tcp streams differ from "
           f"the simulator's")
+    reuse = slot_reuses(f"{label} tcp", rep.requests, SLOTS)
     check(launches["sqs_fused"] > 0, f"{label}: the edge never launched "
           f"sqs_fused: {launches}")
     names = span_names_by_clock(obs.tracer.chrome_trace())
@@ -1469,7 +1594,8 @@ def tcp_leg(label, dev, tc, dc, tp, dp, port, pipeline, codec, batch,
           f"{label}: wire decode errors {c}")
     rpc = np.asarray(client._rpc_s)
     print(f"  {label}: streams equal the simulator's ({len(sim_streams)} "
-          f"requests, {sum(map(len, sim_streams.values()))} tokens); "
+          f"requests, {sum(map(len, sim_streams.values()))} tokens; "
+          f"admitted into a freed slot (freed by, admitted): {reuse}); "
           f"launches {launches}; sim {t_sim:.1f} s wall, tcp "
           f"{t_tcp:.1f} s wall")
     print(f"    measured RPC round mean {rpc.mean() * 1e3:.2f} ms, p50 "
@@ -1498,9 +1624,10 @@ def phase_tcp(dev, tc, dc, tp, dp, tmp):
               f"csqs, {SLOTS} slots in {TCP_CELLS} cells; cloud server pid "
               f"{proc.pid} on port {port} (up in "
               f"{time.perf_counter() - t0:.1f} s)")
-        trace = dict(n_requests=6, rate_rps=4.0, prompt_len=PROMPT_LEN,
-                     min_new_tokens=8, max_new_tokens=12, vocab=tc.vocab,
-                     seed=5, cells=TCP_CELLS)
+        trace = dict(n_requests=SERVE_REQUESTS, rate_rps=4.0,
+                     prompt_len=PROMPT_LEN, min_new_tokens=8,
+                     max_new_tokens=12, vocab=tc.vocab, seed=5,
+                     cells=TCP_CELLS)
         launches = {}
         for label, pipeline, codec, batch in (
                 ("lockstep v1 + verdict batching", "lockstep", "v1", True),
@@ -1622,14 +1749,16 @@ def phase_moe(dev):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import sqs_fused as k
     t0 = time.perf_counter()
-    tc = configs.get_config(MOE_ARCH)
+    full = configs.get_config(MOE_ARCH)
+    tc = depth_cut(full, MOE_LAYERS)
     dc = configs.draft_variant(tc, 2)
     tp = seeded_model(tc, 1, dev)
     dp = seeded_model(dc, 2, dev)
     torch.cuda.synchronize()
     n_t = sum(p.numel() for p in tp.parameters())
     n_d = sum(p.numel() for p in dp.parameters())
-    print(f"phase 10: {tc.name} ({tc.n_layers} layers, d {tc.d_model}, "
+    print(f"phase 10: {tc.name} ({tc.n_layers} of {full.n_layers} layers, "
+          f"d {tc.d_model}, "
           f"{tc.n_experts} routed top-{tc.moe_top_k} + "
           f"{tc.n_shared_experts} shared experts of {tc.d_expert}; "
           f"{n_t / 1e9:.3f} B params) <- {dc.name} ({dc.n_layers} layers, d "
@@ -1913,8 +2042,10 @@ def phase_serve_pair(paths):
         acc = [float(np.mean(r["n_accept"])) for r in rounds]
         check(float(np.mean(acc)) > 0,
               f"pair {method}: no token accepted ({acc})")
+        drop = [round(float(r["dropped_mean"]), 4) for r in rounds]
         print(f"  (c) {method}/v1 from the checkpoints ({wall:.1f} s with "
-              f"loading): accepted tokens a row a round "
+              f"loading): dropped mass a draft (mean a round) {drop}; "
+              f"accepted tokens a row a round "
               f"{[round(a, 3) for a in acc]} (mean "
               f"{float(np.mean(acc)):.3f}); accept rate "
               f"{s['accept_rate']:.4f}; resampling rate "
@@ -1947,15 +2078,200 @@ def phase_serve_pair(paths):
     return launches
 
 
-def phase_pair(dev):
+def phase_pair(dev, smi):
     """Phase 11: (a) train steps at full width, (b) the pair trained and
-    saved, (c) served from its checkpoints."""
+    saved, (c) served from its checkpoints; then phase 16 on the same
+    checkpoints.  Returns the SQS launches of phases 11 and 16."""
     t0 = time.perf_counter()
     phase_train_steps(dev)
     with tempfile.TemporaryDirectory() as tmp:
         paths = phase_train_pair(dev, tmp)
         launches = phase_serve_pair(paths)
-    print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+        print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+        free_cuda()
+        cross = phase_crossover(dev, paths, tmp, smi)
+    return {n: launches[n] + cross[n] for n in launches}
+
+
+# ----------------------------------------------------------------------
+# phase 16: the Fig. 2 temperature crossover
+# ----------------------------------------------------------------------
+# (b) the full-width pair: batch and rounds a sweep after its 2 warmup
+# rounds.  A K-SQS draft on the kernel path fails the phase where it drops
+# FAULT_DROP of its mass while torch.topk's support on the same q drops
+# less than TOPK_DROP: the signature of a top-K search that stops above
+# the K-th value (ROADMAP Queue 3 item 12)
+CROSS_BATCH, CROSS_ROUNDS = 4, 3
+FAULT_DROP, TOPK_DROP = 0.5, 1e-3
+# K at which the reference's search is replayed on the drafts' q: the
+# crossover's and phase 11 (c)'s
+REPLAY_KS = (16, 64)
+
+
+def load_example(name):
+    """An ``examples/`` module by file, registered under its name (the
+    examples import ``torch_pair`` so)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def draft_dropped(rounds):
+    """The dropped mass of every live draft in ``rounds`` (run with
+    ``collect_theory``), with its dense q: [(dropped, q (V,))]."""
+    import numpy as np
+    out = []
+    for r in rounds:
+        live = r["live_seq"]                            # (B, L)
+        dropped = r["dropped_seq"][:, :live.shape[1]]
+        for b, i in zip(*np.nonzero(live)):
+            out.append((float(dropped[b, i]), r["q"][b, i]))
+    return out
+
+
+def reference_search_dropped(q, K):
+    """Dropped mass of the reference's K-SQS rule on rows q (N, V): its
+    40-step float bisection of [0, max q] (``repro.kernels.ref.
+    topk_threshold_ref``), then the first K of q >= lo by index."""
+    import torch
+    hi = q.amax(-1, keepdim=True)
+    lo = torch.zeros_like(hi)
+    for _ in range(40):
+        mid = 0.5 * (lo + hi)
+        take = (q >= mid).sum(-1, keepdim=True) >= K
+        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    cand = q >= lo
+    keep = cand & (torch.cumsum(cand.to(torch.int32), -1) <= K)
+    return 1.0 - torch.where(keep, q, 0.0).sum(-1)
+
+
+def crossover_example(tmp):
+    """(a) examples/torch_temperature_crossover.py with its defaults as a
+    child process, alone on the card after (b) (the smoke pair trained on
+    the card, 500 + 250 steps, 12 rounds a sweep, the fused kernels):
+    exit 0 and all 10 rows (five temperatures, two methods)."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(HERE, "examples",
+                                      "torch_temperature_crossover.py"),
+         "--cache", os.path.join(tmp, "smoke_pair")],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    text = r.stdout + r.stderr
+    check(r.returncode == 0, f"torch_temperature_crossover.py exit "
+          f"{r.returncode}: " + text[-3000:])
+    lines = text.splitlines()
+    table = [ln for ln in lines if ln.rstrip().endswith(("| K-SQS",
+                                                          "| C-SQS"))]
+    rows = [ln.strip() for ln in lines if ln.strip().startswith("method=")]
+    check(len(table) == 5 and len(rows) == 10,
+          f"torch_temperature_crossover.py printed {len(table)} table rows "
+          f"and {len(rows)} data rows: {text[-2000:]}")
+    head = [ln for ln in lines if ln.lstrip().startswith("T |")]
+    print("phase 16 (a): examples/torch_temperature_crossover.py (its "
+          "defaults: the smoke pair trained on the card, 12 rounds a sweep,"
+          " the fused kernels), exit 0:\n  "
+          + "\n  ".join(head + table + rows))
+    print(f"  phase 16 (a): {time.perf_counter() - t0:.1f} s")
+
+
+def crossover_full_width(dev, paths, smi):
+    """(b) torch_pair.crossover on phase 11's full-width pair, on the fused
+    kernels and on plain torch (the same prompts), with the fault's
+    signature checked on every K-SQS draft of the kernel path and the
+    reference's search replayed on the same q.  Returns the SQS launches
+    of the kernel path."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.launch.serve import load_or_init
+    tp_mod = load_example("torch_pair")
+    tc = configs.get_config(PAIR_ARCH)
+    dc = configs.draft_variant(tc, 2)
+    check(k.pad_vocab(tc.vocab) == 50304, f"{PAIR_ARCH} pads to "
+          f"{k.pad_vocab(tc.vocab)}")
+    t0 = time.perf_counter()
+    tp = load_or_init(tc, paths["target"], 1, dev)
+    dp = load_or_init(dc, paths["draft"], 2, dev)
+    print(f"phase 16 (b): the Fig. 2 crossover on phase 11's full-width "
+          f"{PAIR_ARCH} pair (loaded in {time.perf_counter() - t0:.1f} s), "
+          f"B {CROSS_BATCH}, {CROSS_ROUNDS} rounds a sweep after 2 warmup "
+          f"rounds, L_max 6, K-SQS K 16, C-SQS alpha 5e-4 eta 1e-3, l 100, "
+          f"Vp 50304; {smi[0]}")
+    launches = {}
+    for use_kernels in (True, False):
+        label = "fused kernels" if use_kernels else "plain torch"
+        data = SyntheticLM(DataConfig(vocab=tc.vocab, seq_len=48, batch=16,
+                                      p_bigram=0.85, jitter=2, seed=5))
+        k.reset_launches()
+        t1 = time.perf_counter()
+        rows, runs = tp_mod.crossover((dc, dp, tc, tp, data),
+                                      rounds=CROSS_ROUNDS, batch=CROSS_BATCH,
+                                      use_kernels=use_kernels,
+                                      collect_theory=True)
+        got = dict(k.LAUNCHES)
+        wall = time.perf_counter() - t1
+        if use_kernels:
+            check(all(n > 0 for n in got.values()),
+                  f"crossover on the kernels launched {got}")
+            launches = got
+        else:
+            check(not any(got.values()),
+                  f"crossover on plain torch launched {got}")
+        print(f"  {label} ({wall:.1f} s, launches {got}):")
+        for r in rows:
+            drafts = draft_dropped(runs[(r["method"], r["temperature"])])
+            dropped = torch.tensor([d for d, _ in drafts])
+            extra = (f"; largest dropped mass of a draft "
+                     f"{float(dropped.max()):.4g}")
+            if r["method"] == "ksqs":
+                q = torch.from_numpy(np.stack([q for _, q in drafts])).to(dev)
+                top = {K: (1.0 - torch.topk(q, K, dim=-1).values.sum(-1))
+                       .cpu() for K in REPLAY_KS}
+                fault = (dropped >= FAULT_DROP) & (top[16] < TOPK_DROP)
+                if use_kernels:
+                    check(not bool(fault.any()),
+                          f"{int(fault.sum())} K-SQS drafts at T "
+                          f"{r['temperature']} drop >= {FAULT_DROP} where "
+                          f"torch.topk drops < {TOPK_DROP}")
+                # mass the reference's rule loses against the top-K set
+                lost = {K: reference_search_dropped(q, K).cpu() - top[K]
+                        for K in REPLAY_KS}
+                extra += (f" (torch.topk's support {float(top[16].max()):.4g}"
+                          f"); {int(fault.sum())} of {len(drafts)} drafts "
+                          f"with the fault's signature; the reference's rule "
+                          f"on the same q loses > {TOPK_DROP} of mass in "
+                          + ", ".join(f"{int((v > TOPK_DROP).sum())} (at "
+                                      f"most {float(v.max()):.4g}) at K {K}"
+                                      for K, v in lost.items()))
+            print(f"    {r['method']} T={r['temperature']}: latency_per_batch "
+                  f"{r['latency_per_batch_s'] * 1e3:.2f} ms, resampling_rate "
+                  f"{r['resampling_rate']:.4f}, accept_rate "
+                  f"{r['accept_rate']:.4f}, bits_per_batch "
+                  f"{r['bits_per_batch']:.1f}, mean_K {r['mean_K']:.2f}"
+                  + extra)
+        print("    winner by latency: " + ", ".join(
+            f"T={T} {w}" for T, (_, _, w) in tp_mod.winners(rows).items()))
+    del tp, dp
+    return launches
+
+
+def phase_crossover(dev, paths, tmp, smi):
+    """Phase 16: (b) the crossover on the full-width pair, then (a) the
+    crossover example as a child process; neither is timed beside the
+    other.  Returns the SQS launches of (b)'s kernel path."""
+    t0 = time.perf_counter()
+    launches = crossover_full_width(dev, paths, smi)
+    free_cuda()
+    print(f"  phase 16 (b): {time.perf_counter() - t0:.1f} s")
+    crossover_example(tmp)
+    print(f"  phase 16: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1963,6 +2279,9 @@ def phase_pair(dev):
 # phase 12: the SSM and hybrid family
 # ----------------------------------------------------------------------
 SSM_ARCH, HYBRID_ARCH = "xlstm-1.3b", "jamba-1.5-large-398b"
+# (a) and (b) run xlstm-1.3b cut from 48 to SSM_LAYERS layers at full
+# width, two periods of 7 mLSTM : 1 sLSTM (its draft one period of 24)
+SSM_LAYERS = 16
 # rolled-back caches against a fresh prefill of the verified prefix,
 # target and draft, after uncompressed rounds of the pair with a budget
 # that lets every draft go out (rows accept 0..L_max tokens; K-SQS on
@@ -2266,14 +2585,16 @@ def phase_ssm_full_width(dev, failures):
     from repro_torch.bridge import seeded_model
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     t0 = time.perf_counter()
-    tc = configs.get_config(SSM_ARCH)
+    full = configs.get_config(SSM_ARCH)
+    tc = depth_cut(full, SSM_LAYERS)
     dc = configs.draft_variant(tc, 2)
     tp = seeded_model(tc, 1, dev)
     dp = seeded_model(dc, 2, dev)
     torch.cuda.synchronize()
     n_t = sum(p.numel() for p in tp.parameters())
     n_d = sum(p.numel() for p in dp.parameters())
-    print(f"phase 12 (a): {tc.name} ({tc.n_layers} layers "
+    print(f"phase 12 (a): {tc.name} ({tc.n_layers} of {full.n_layers} "
+          f"layers "
           f"{'/'.join(tc.block_pattern[:1] + tc.block_pattern[-1:])} 7:1, "
           f"d {tc.d_model}, {tc.n_heads} heads, mLSTM width "
           f"{int(tc.mlstm_proj_factor * tc.d_model)}, V {tc.vocab}; "
@@ -2499,6 +2820,14 @@ def phase_ssm(dev):
 # phase 13: MLA with its dense prefix layer, and the sliding window
 # ----------------------------------------------------------------------
 MLA_ARCH, WINDOW_ARCH = "deepseek-v2-lite-16b", "qwen2.5-3b"
+# (a) runs deepseek-v2-lite-16b cut from 27 to MLA_LAYERS layers at full
+# width: the dense first layer and 8 MoE layers (its draft 5 of 14)
+MLA_LAYERS = 9
+# (b)-(d) run the window's config at full width cut from 36 to
+# WINDOW_LAYERS layers (its draft 6 of 18): the ring is a layer's own, and
+# a third of the stack still has later layers that read what an earlier
+# layer's replay wrote; the cut keeps the phase near a minute shorter
+WINDOW_LAYERS = 12
 # (b) for_shape(qwen2.5-3b, long_500k) at full width: a prompt RING_PAST
 # positions longer than its window W (so the ring has wrapped), then
 # RING_STEPS decode steps through the ring against the teacher-forced
@@ -2564,14 +2893,16 @@ def phase_mla(dev):
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import sqs_fused as k
     t0 = time.perf_counter()
-    tc = configs.get_config(MLA_ARCH)
+    full = configs.get_config(MLA_ARCH)
+    tc = depth_cut(full, MLA_LAYERS)
     dc = configs.draft_variant(tc, 2)
     tp = seeded_model(tc, 1, dev)
     dp = seeded_model(dc, 2, dev)
     torch.cuda.synchronize()
     n_t = sum(p.numel() for p in tp.parameters())
     n_d = sum(p.numel() for p in dp.parameters())
-    print(f"phase 13 (a): {tc.name} ({tc.n_layers} layers, the first "
+    print(f"phase 13 (a): {tc.name} ({tc.n_layers} of {full.n_layers} "
+          f"layers, the first "
           f"dense; d {tc.d_model}, {tc.n_heads} heads, MLA kv_lora "
           f"{tc.kv_lora_rank}, rope_hd {tc.rope_head_dim}; "
           f"{tc.n_experts} routed top-{tc.moe_top_k} + "
@@ -2674,12 +3005,13 @@ def phase_window(dev):
                                          MethodConfig)
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import sqs_fused as k
-    tc = configs.for_shape(configs.get_config(WINDOW_ARCH),
-                           configs.INPUT_SHAPES["long_500k"])
+    full = configs.for_shape(configs.get_config(WINDOW_ARCH),
+                             configs.INPUT_SHAPES["long_500k"])
+    tc = depth_cut(full, WINDOW_LAYERS)
     W = tc.sliding_window
-    print(f"phase 13 (b): {tc.name} for long_500k ({tc.attention}, W {W}) "
-          f"at full width ({tc.n_layers} layers, d {tc.d_model}, "
-          f"{tc.n_heads}/{tc.n_kv_heads} heads)")
+    print(f"phase 13 (b): {full.name} for long_500k ({tc.attention}, W {W}) "
+          f"at full width (d {tc.d_model}, {tc.n_heads}/{tc.n_kv_heads} "
+          f"heads) cut from {full.n_layers} to {tc.n_layers} layers")
     gen = torch.Generator(device=dev).manual_seed(17)
     toks = torch.randint(0, tc.vocab, (1, W + RING_PAST + RING_STEPS),
                          generator=gen, device=dev)
@@ -2997,6 +3329,10 @@ def phase_mla_window(dev):
 # phase 14: the encoder-decoder and M-RoPE family
 # ----------------------------------------------------------------------
 VL_ARCH, VL_LAYERS, VL_F32_LAYERS = "qwen2-vl-72b", 16, 4
+# the 2x draft cut from 40 layers in the target's proportion (80 -> 16):
+# at 40 layers the draft is deeper than the cut target, and its t_slm
+# (~1 s a round) was most of the phase's time
+VL_DRAFT_LAYERS = 8
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 # (a) a VL_GRID x VL_GRID patch grid (frontend.vision_patch_positions),
 # then VL_TEXT text positions from VL_GRID on (mrope_text_positions), a
@@ -3085,11 +3421,11 @@ def serve_vs_teacher(label, model, toks, S_p, positions=None,
 
 def phase_vl(dev):
     """(a) qwen2-vl-72b at full width, cut to VL_LAYERS layers, with its
-    full-depth 2x draft: all four methods, the SQS kernels held, one draft
-    call and one verify profiled, a trace dense / paged / pipelined, and
-    the vision prefill in bf16 and at VL_F32_LAYERS layers in float32.
+    2x draft cut to VL_DRAFT_LAYERS: all four methods, the SQS kernels
+    held, one draft call and one verify profiled, a trace dense / paged /
+    pipelined, and the vision prefill in bf16 and at VL_F32_LAYERS layers
+    in float32.
     Returns the SQS launches of the path."""
-    import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.bridge import seeded_model
@@ -3098,9 +3434,8 @@ def phase_vl(dev):
     from repro_torch.models import frontend
     t0 = time.perf_counter()
     full = configs.get_config(VL_ARCH)
-    tc = dataclasses.replace(full, name=f"{VL_ARCH}-d{VL_LAYERS}",
-                             n_layers=VL_LAYERS)
-    dc = configs.draft_variant(full, 2)
+    tc = depth_cut(full, VL_LAYERS)
+    dc = depth_cut(configs.draft_variant(full, 2), VL_DRAFT_LAYERS)
     tp = seeded_model(tc, 1, dev)
     dp = seeded_model(dc, 2, dev)
     torch.cuda.synchronize()
@@ -3112,7 +3447,7 @@ def phase_vl(dev):
           f"{tc.mrope_sections}, qkv biases) cut from {full.n_layers} to "
           f"{tc.n_layers} layers ({n_t / 1e9:.3f} B params, "
           f"{n_t * 2 / 1e9:.2f} GB bf16; the full depth is 145.4 GB) <- "
-          f"{dc.name} at full depth ({dc.n_layers} layers, d {dc.d_model}, "
+          f"{dc.name} at full width ({dc.n_layers} layers, d {dc.d_model}, "
           f"{dc.n_heads}/{dc.n_kv_heads} heads; {n_d / 1e9:.3f} B params), "
           f"{tp.dtype} weights built in {time.perf_counter() - t0:.1f} s; "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
@@ -3165,8 +3500,7 @@ def phase_vl(dev):
     serve_vs_teacher(f"vl {tc.name}", tp, toks, S_p, positions=pos3)
     del tp
     free_cuda()
-    tc32 = dataclasses.replace(tc, name=f"{VL_ARCH}-d{VL_F32_LAYERS}",
-                               n_layers=VL_F32_LAYERS)
+    tc32 = depth_cut(configs.get_config(VL_ARCH), VL_F32_LAYERS)
     serve_vs_teacher(f"vl {tc32.name}",
                      seeded_model(tc32, 1, dev, dtype=torch.float32), toks,
                      S_p, positions=pos3)
@@ -3395,7 +3729,6 @@ def phase_tooling(dev, dry):
     """Phase 15: the dry run (``dry``: ``start_dry_runs``'s futures), rank
     0 for real, the two examples.  Returns the SQS launches of the
     quickstart."""
-    import importlib.util
     import torch
     from repro_torch.kernels import sqs_fused as k
     from repro_torch.launch import dryrun
@@ -3490,35 +3823,43 @@ def phase_tooling(dev, dry):
     free_cuda()
     print(f"  phase 15 (b): {time.perf_counter() - t1:.1f} s")
     t2 = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "torch_quickstart", os.path.join(HERE, "examples",
-                                         "torch_quickstart.py"))
-    quick = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(quick)
-    for name in k.LAUNCHES:
-        k.LAUNCHES[name] = 0
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        quick.main(["--device", "cuda"])
-    launches = dict(k.LAUNCHES)
-    print("phase 15 (c): examples/torch_quickstart.py\n  "
-          + out.getvalue().strip().replace("\n", "\n  "))
-    check(all(launches[n] > 0 for n in ("sqs_fused", "topk_threshold")),
-          f"the quickstart launched {launches}")
-    check(all(m in out.getvalue() for m in ("K-SQS", "C-SQS")),
-          "quickstart output")
     with tempfile.TemporaryDirectory() as tmp:
-        r = subprocess.run(
-            [sys.executable, os.path.join(HERE, "examples",
-                                          "torch_train_draft_slm.py"),
-             "--steps", "4", "--out", tmp],
-            cwd=HERE, capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
-        check(r.returncode == 0, "torch_train_draft_slm.py: "
-              + r.stdout[-2000:] + r.stderr[-2000:])
+        # the train example runs as a child process beside the quickstart
+        log = os.path.join(tmp, "train.log")
+        with open(log, "w") as f:
+            child = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "examples",
+                                              "torch_train_draft_slm.py"),
+                 "--steps", "4", "--out", tmp],
+                cwd=HERE, stdout=f, stderr=subprocess.STDOUT, text=True,
+                env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+        try:
+            quick = load_example("torch_quickstart")
+            for name in k.LAUNCHES:
+                k.LAUNCHES[name] = 0
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                quick.main(["--device", "cuda"])
+            launches = dict(k.LAUNCHES)
+            print("phase 15 (c): examples/torch_quickstart.py\n  "
+                  + out.getvalue().strip().replace("\n", "\n  "))
+            check(all(launches[n] > 0 for n in ("sqs_fused",
+                                                 "topk_threshold")),
+                  f"the quickstart launched {launches}")
+            check(all(m in out.getvalue() for m in ("K-SQS", "C-SQS")),
+                  "quickstart output")
+            rc = child.wait(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        with open(log) as f:
+            text = f.read()
+        check(rc == 0, f"torch_train_draft_slm.py exit {rc}: {text[-3000:]}")
         ckpts = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
-    print(f"  examples/torch_train_draft_slm.py --steps 4: exit 0, {ckpts}; "
-          f"SQS launches of the quickstart {launches}")
+    print(f"  examples/torch_train_draft_slm.py --steps 4 (a child "
+          f"process beside the quickstart): exit 0, {ckpts}; SQS launches "
+          f"of the quickstart {launches}")
     print(f"  phase 15 (c): {time.perf_counter() - t2:.1f} s")
     print(f"  phase 15: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -3553,7 +3894,7 @@ def main():
 
 
 def run_phases(torch, t_start, smi, dry):
-    """Phases 2-15 and the closing lines."""
+    """Phases 2-16 and the closing lines."""
     phase_kernels()
     phase_kernels_vocabularies()
     phase_decode_kernels()
@@ -3580,7 +3921,7 @@ def run_phases(torch, t_start, smi, dry):
     torch.cuda.reset_peak_memory_stats()
     moe_launches = phase_moe(dev)
     free_cuda()
-    pair_launches = phase_pair(dev)
+    pair_launches = phase_pair(dev, smi)
     free_cuda()
     ssm_launches = phase_ssm(dev)
     check(all(n > 0 for n in ssm_launches.values()), "phase 12 never "
@@ -3603,7 +3944,7 @@ def run_phases(torch, t_start, smi, dry):
                           + mla_launches.get(r["name"], 0)
                           + vl_launches.get(r["name"], 0)
                           + tool_launches.get(r["name"], 0))
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -61,7 +61,7 @@ def profile(lib, lp, beta, dev):
     for name, call in (
             ("topk_threshold", lambda: lib.topk_threshold_launch(
                 lp.data_ptr(), tau.data_ptr(), info.data_ptr(), B, Vp, C, L,
-                1.0, K, k.BISECT_ITERS, stream)),
+                1.0, K, stream)),
             ("sqs_fused", lambda: lib.sqs_fused_launch(
                 lp.data_ptr(), beta.data_ptr(), b.data_ptr(), mask.data_ptr(),
                 stats.data_ptr(), info.data_ptr(), B, Vp, C, L, 1.0, 100, 0,

@@ -4,8 +4,10 @@ Update rule, eq. (8):    β_{n+1} = β_n − η · (Σ_{x∉X_n} q_n(x) − α)
 
 Checkpoint / backtracking (Algorithm 1, lines 12–13): after cloud
 feedback only the updates belonging to accepted tokens (plus the one
-resampled/bonus token) are kept — the cloud returns β_T from the wire
-trajectory (``backtrack_wire``).  Mirrors ``repro.core.conformal``.
+resampled/bonus token) are kept: β at index min(T+1, L) of the drafted
+trajectory (``backtrack``), or, the way the engine does it, β_T from the
+wire trajectory, returned by the cloud (``backtrack_wire``).  Mirrors
+``repro.core.conformal``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,18 @@ def update(beta, dropped_mass, alpha: float, eta: float):
     too: β's float32 bits ride the wire."""
     d = dropped_mass.float() - float(np.float32(alpha))
     return fma(d, float(np.float32(-eta)), beta.float())
+
+
+def backtrack(beta_traj, n_keep):
+    """Device-side backtrack.  beta_traj: (L+1, B) thresholds recorded
+    during drafting (row 0 the pre-batch value, row i the value after the
+    i-th in-batch update); n_keep: (B,) updates to keep (accepted tokens +
+    the resampled/bonus token), clipped to [0, L].  Returns β₁^{t+1}
+    (B,)."""
+    beta_traj = torch.as_tensor(beta_traj)
+    L = beta_traj.shape[0] - 1
+    idx = torch.as_tensor(n_keep, device=beta_traj.device).long()
+    return beta_traj.gather(0, idx.clamp(0, L)[None, :])[0]
 
 
 def backtrack_wire(betas, n_accept: int) -> float:

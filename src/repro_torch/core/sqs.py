@@ -35,11 +35,27 @@ def softmax(x, dim: int = -1):
     return e / e.sum(dim, keepdim=True)
 
 
+def flush_subnormal(x):
+    """x with float32 subnormals set to 0, as XLA's CPU code (and the TPU)
+    computes them: a tempered probability below 2^-126 is 0 there, and at
+    T <= 0.2 such values decide which K-th value the top-K rule sees."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, 0.0, x)
+
+
+def flushed_softmax(x):
+    """``softmax(x)`` over the last axis with the exponentials and the
+    probabilities flushed by ``flush_subnormal``: the SQS probabilities of
+    both paths (``softmax_temp``, the kernels' twins and the kernels)."""
+    e = flush_subnormal(torch.exp(x - x.amax(-1, keepdim=True)))
+    return flush_subnormal(e / e.sum(-1, keepdim=True))
+
+
 def softmax_temp(logits, temperature: float):
     """softmax(logits / T); the division by the constant T is the
-    multiplication by its float32 reciprocal that XLA compiles it to."""
+    multiplication by its float32 reciprocal that XLA compiles it to, and
+    the exponentials and probabilities flush subnormals as XLA's do."""
     t = max(float(np.float32(temperature)), 1e-4)
-    return softmax(logits.float() * reciprocal(t))
+    return flushed_softmax(logits.float() * reciprocal(t))
 
 
 def _renormalize(q, mask):
@@ -49,13 +65,19 @@ def _renormalize(q, mask):
 
 
 def sparsify_topk(q, K: int, ell: int) -> SQSResult:
-    """K-SQS: keep the K largest-probability tokens (fixed K)."""
+    """K-SQS: keep the K largest-probability tokens (fixed K): every q
+    above the K-th value, and of the ties at it the earliest by index
+    (``lax.top_k``'s index set).  The reference keeps the first K of
+    q >= kth by index, which where fewer than K probabilities are nonzero
+    keeps zeros and drops the whole mass (ROADMAP Queue 3 item 12); on
+    every other row the two agree."""
     V = q.shape[-1]
     K = min(K, V)
     kth = torch.topk(q, K, dim=-1).values[..., -1:]     # (B, 1)
-    mask = q >= kth
-    # ties could admit > K entries: break by index (keep first K)
-    mask = mask & (torch.cumsum(mask.to(torch.int32), -1) <= K)
+    above = q > kth
+    tie = q == kth
+    room = K - above.sum(-1, keepdim=True)
+    mask = above | (tie & (torch.cumsum(tie.to(torch.int32), -1) <= room))
     dropped = torch.where(mask, 0.0, q).sum(-1)
     q_hat, _ = lattice_quantize(_renormalize(q, mask), ell, mask)
     return SQSResult(q_hat, mask, dropped, mask.sum(-1).to(torch.int32))

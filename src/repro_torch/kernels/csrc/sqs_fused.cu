@@ -4,7 +4,9 @@
 //   sqs_fused_kernel      <- sqs_fused_call / _sqs_kernel + _select_n
 //   topk_threshold_kernel <- topk_threshold_call / _topk_kernel, with the
 //                            temperature softmax that repro.kernels.ops.sqs_topk
-//                            computes in jnp before the call fused in.
+//                            computes in jnp before the call fused in, and
+//                            the exact K-th largest where the TPU kernel
+//                            brackets it by a 40-step float bisection.
 //
 // What bounds it on this card.  Per row the work is a few flops per vocab
 // entry, so the floor is bytes: 4 B of logits read and 8 B of (b, mask)
@@ -39,37 +41,39 @@
 // see bit-identical q (K-SQS chains topk_threshold's lo into sqs_fused's
 // q >= lo and then needs K == exact_k).
 //
-// Bisections with the loop's bits and few barriers.  The loop (`iters`
-// steps for the top-K bracket, 40 for the +-1 select) sets mid =
-// 0.5f * (lo + hi) and moves lo or hi by count(v >= mid) >= n.  Its
-// midpoints form a fixed tree; one SWEEP computes the next 2^LEVELS - 1 of
-// them exactly as the loop would, in order (each mid lies in its
-// [lo, hi]), bins every value against them, and replays LEVELS steps from
-// the bins' suffix counts: the same mids and the same decisions, so the
-// same [lo, hi].  A sweep over the cluster costs one cluster barrier (the
-// bins are exchanged).  A value's bin is estimated from the even grid the
-// mids lie near and corrected against the mids; the bins most values fall
-// in (below lo, below the first mid, above the last, at or above hi) are
-// counted in registers, the rest through shared atomics.  Values below lo
-// never count again and values at or above hi always do, so once the
-// values in [lo, hi) fit a buffer of CAP they are COMPACTED into block 0,
-// which finishes the remaining steps alone with count = (count >= hi) +
-// (buffer values >= mid): one warp runs the loop itself over up to WARP_MAX
-// values held in registers, block sweeps take more.  topk_threshold sweeps
-// the cluster once (twice if the first leaves too many values in range)
-// and then compacts.  The select compacts its eligible keys at once when
-// they fit (K-SQS: K of them; C-SQS: the support) and falls back to
-// cluster sweeps when they do not (near-uniform rows with K = V); there
-// the steps whose mid is at most the least eligible key, which count every
-// key, are taken without a sweep.  The ties then go to the earliest
-// indices, through an exclusive prefix over ranks of the ties per block
-// and a block scan in the one block where the cut falls.  The K-SQS index
-// trim (first exact_k candidates) works the same way.
+// Bisections with few barriers.  A bisection loop sets mid from [lo, hi] (the
+// +-1 select: 40 steps of mid = 0.5f * (lo + hi), the reference's; the top-K
+// search: one sweep of those, then the midpoint of the float32 bit patterns
+// down to adjacent ones, see topk_threshold_kernel) and moves lo or hi by
+// count(v >= mid) >= n.  Its midpoints form a fixed tree; one SWEEP computes
+// the next 2^LEVELS - 1 of them exactly as the loop would, in order (each mid
+// lies in its [lo, hi]), bins every value against them, and replays LEVELS
+// steps from the bins' suffix counts: the same mids and the same decisions, so
+// the same [lo, hi].  A sweep over the cluster costs one cluster barrier (the
+// bins are exchanged).  A value's bin is estimated from the even grid the mids
+// lie near and corrected against the mids; the bins most values fall in (below
+// lo, below the first mid, above the last, at or above hi) are counted in
+// registers, the rest through shared atomics.  Values below lo never count
+// again and values at or above hi always do, so once the values in [lo, hi) fit
+// a buffer of CAP they are COMPACTED into block 0, which finishes the remaining
+// steps alone with count = (count >= hi) + (buffer values >= mid): one warp
+// runs the loop itself over up to WARP_MAX values held in registers, block
+// sweeps take more.  topk_threshold sweeps the cluster once and compacts at
+// once in the usual row (more sweeps where many values crowd the K-th one, as
+// at low temperature).  The select compacts its eligible keys at once when they
+// fit (K-SQS: K of them; C-SQS: the support) and falls back to cluster sweeps
+// when they do not (near-uniform rows with K = V); there the steps whose mid is
+// at most the least eligible key, which count every key, are taken without a
+// sweep.  The ties then go to the earliest indices, through an exclusive prefix
+// over ranks of the ties per block and a block scan in the one block where the
+// cut falls.  The K-SQS trim (of the ties at lo, the earliest kept up to
+// exact_k) works the same way.
 //
-// Numerics mirror the Pallas kernel: IEEE division and expf, no FMA
-// contraction (the file is built with --fmad=false and the rounding points
-// are spelled with __fmul_rn/__fadd_rn), bisections with f32 midpoints,
-// earliest-index tie breaking.  Only the order of the f32 sums (softmax
+// Numerics mirror the Pallas kernel: IEEE division and expf, no FMA contraction
+// (the file is built with --fmad=false and the rounding points are spelled with
+// __fmul_rn/__fadd_rn), the select's bisection with f32 midpoints,
+// earliest-index tie breaking, and e and q with subnormals flushed to 0 as
+// XLA's are (ftz; the file is otherwise built without -ftz).  Only the order of the f32 sums (softmax
 // denominator, retained mass) differs from the plain twin.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -328,15 +332,59 @@ __device__ __forceinline__ int fold_count(const Ctx& c, int slot, int k, int upt
 }
 
 // -------------------------------------------------------------- bisections
+// The midpoint rule of a bisection, and where a value sits on the even grid
+// over [lo, hi) that a sweep's midpoints lie near (in units of a grid step:
+// place(v, lo, scale(lo, hi))).
+//   FloatTree: the loop's float midpoint 0.5f * (lo + hi) (the +-1 select,
+//     and the top-K search's first sweep).
+//   BitTree: the midpoint of the float32 bit patterns of lo <= hi, both
+//     non-negative, whose patterns order as their values do.  Steps on
+//     integers end at adjacent patterns, so the search's lo is then a value
+//     of the row exactly, however small (the top-K search's later steps).
+struct FloatTree {
+  static __device__ __forceinline__ float mid(float lo, float hi) {
+    return __fmul_rn(0.5f, __fadd_rn(lo, hi));
+  }
+  static __device__ __forceinline__ float scale(float lo, float hi) {
+    return __fdiv_rn((float)(NTHR + 1), __fsub_rn(hi, lo));
+  }
+  static __device__ __forceinline__ float place(float v, float lo, float scale) {
+    return __fmul_rn(__fsub_rn(v, lo), scale);
+  }
+};
+
+struct BitTree {
+  static __device__ __forceinline__ float mid(float lo, float hi) {
+    const unsigned a = __float_as_uint(lo);
+    return __uint_as_float(a + ((__float_as_uint(hi) - a) >> 1));
+  }
+  static __device__ __forceinline__ float scale(float lo, float hi) {
+    return __fdiv_rn((float)(NTHR + 1), __uint2float_rn(__float_as_uint(hi) - __float_as_uint(lo)));
+  }
+  static __device__ __forceinline__ float place(float v, float lo, float scale) {
+    return __fmul_rn(__uint2float_rn(__float_as_uint(v) - __float_as_uint(lo)), scale);
+  }
+};
+
+// Steps a BitTree bisection takes from [lo, hi) to adjacent patterns: each
+// step leaves at most ceil(span / 2) patterns.
+__device__ __forceinline__ int bit_steps(float lo, float hi) {
+  const unsigned span = __float_as_uint(hi) - __float_as_uint(lo);
+  return span > 1 ? 32 - __clz((int)(span - 1)) : 0;
+}
+
 // thr[1..NTHR] = the midpoints of the next LEVELS bisection steps from
 // (lo, hi), in order: thr[2^(LEVELS-1)] is the next mid, and each node's
-// mid is 0.5f * (lo + hi) of the bounds on its path, as the loop computes it.
+// mid is T::mid of the bounds on its path, as the loop computes it.  In a
+// BitTree whose span runs out before LEVELS steps the deeper mids repeat
+// their bounds; they stay in order, and such a step moves nothing.
+template <class T>
 __device__ __forceinline__ void fill_thresholds(float lo, float hi, float* thr) {
   const int j = threadIdx.x + 1;
   if (j > NTHR) return;
   int p = 1 << (LEVELS - 1), d = p >> 1;
   while (true) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    const float mid = T::mid(lo, hi);
     if (j == p) {
       thr[j] = mid;
       return;
@@ -354,20 +402,23 @@ __device__ __forceinline__ void fill_thresholds(float lo, float hi, float* thr) 
 
 // A sweep's bins: 0 below lo, NTHR + 2 at or above hi, else 1 + the
 // number of mids <= v.  The mids lie within rounding of an even grid over
-// [lo, hi], so a value's place is estimated from the grid and corrected
-// against the mids themselves: the count is exact however far off the
-// estimate is, and it takes one or two reads of the mids.
+// [lo, hi] (of values, or of bit patterns), so a value's place is estimated
+// from the grid and corrected against the mids themselves: the count is
+// exact however far off the estimate is, and it takes one or two reads of
+// the mids.
 struct Bins {
   float lo, hi, first, last, scale;   // first, last: thr[1], thr[NTHR]
   const float* thr;
 };
 
+template <class T>
 __device__ __forceinline__ Bins make_bins(float lo, float hi, const float* thr) {
-  return Bins{lo, hi, thr[1], thr[NTHR], __fdiv_rn((float)(NTHR + 1), __fsub_rn(hi, lo)), thr};
+  return Bins{lo, hi, thr[1], thr[NTHR], T::scale(lo, hi), thr};
 }
 
+template <class T>
 __device__ __forceinline__ int inner_bin(float v, const Bins& g) {
-  const float e = fminf(fmaxf(__fmul_rn(__fsub_rn(v, g.lo), g.scale), 0.0f), (float)NTHR);
+  const float e = fminf(fmaxf(T::place(v, g.lo, g.scale), 0.0f), (float)NTHR);
   int pos = (int)e;
   while (pos < NTHR && g.thr[pos + 1] <= v) ++pos;
   while (pos > 0 && g.thr[pos] > v) --pos;
@@ -426,6 +477,7 @@ __device__ __forceinline__ void replay(Bis& b, int steps, const float* thr, cons
 // only when some lane of the warp has one: one for the warp when all its
 // bins agree (values piled in one bin), else one a value (spread values
 // rarely collide).  Called by all 32 lanes.
+template <class T>
 __device__ __forceinline__ void bin4(int* hist, bool ok, float4 v4, const Bins& g, Common& cm) {
   const float v[4] = {v4.x, v4.y, v4.z, v4.w};
   int bin[4] = {-1, -1, -1, -1};
@@ -442,7 +494,7 @@ __device__ __forceinline__ void bin4(int* hist, bool ok, float4 v4, const Bins& 
       } else if (v[j] >= g.last) {
         ++cm.last;
       } else {
-        bin[j] = inner_bin(v[j], g);
+        bin[j] = inner_bin<T>(v[j], g);
         if (first < 0) first = bin[j];
         ++cnt;
       }
@@ -469,22 +521,22 @@ __device__ __forceinline__ void bin4(int* hist, bool ok, float4 v4, const Bins& 
 // One sweep of the whole cluster over the slices' values (val4(i): the four
 // values at i): bins, exchange, replay of `steps` <= LEVELS steps.  One
 // cluster barrier.
-template <class V4>
+template <class T, class V4>
 __device__ void cluster_sweep(Ctx& c, Bis& b, int steps, int n, V4 val4) {
   Sweep& sw = *c.sw;
   int* own = c.hist + (c.ph * c.C + c.rank) * NBIN;
   __syncthreads();
   if (c.sweeps < 3) PROF(c, 6 + 4 * c.sweeps);
-  fill_thresholds(b.lo, b.hi, sw.thr);
+  fill_thresholds<T>(b.lo, b.hi, sw.thr);
   for (int k = threadIdx.x; k < NBIN; k += NT) own[k] = 0;
   __syncthreads();
   if (c.sweeps < 3) PROF(c, 7 + 4 * c.sweeps);
-  const Bins g = make_bins(b.lo, b.hi, sw.thr);
+  const Bins g = make_bins<T>(b.lo, b.hi, sw.thr);
   Common cm = {0, 0, 0, 0};
   for (int base = 0; base < c.len; base += TILE) {
     const int i = base + threadIdx.x * 4;
     const bool ok = i < c.len;
-    bin4(own, ok, ok ? val4(i) : make_float4(0.f, 0.f, 0.f, 0.f), g, cm);
+    bin4<T>(own, ok, ok ? val4(i) : make_float4(0.f, 0.f, 0.f, 0.f), g, cm);
   }
   hist_common(own, cm);
   __syncthreads();
@@ -568,7 +620,7 @@ __device__ void compact(Ctx& c, V4 val4, P keep, int off0) {
 
 // Block 0 alone, one warp: the loop itself over a buffer of nb <= 32 * R
 // values held in registers, one ballot per 32 values and step.
-template <int R>
+template <class T, int R>
 __device__ void warp_finish(Ctx& c, Bis& b, int iters, int n, int nb, int above, float floor_v,
                             int n_floor) {
   if (threadIdx.x < 32) {
@@ -581,7 +633,7 @@ __device__ void warp_finish(Ctx& c, Bis& b, int iters, int n, int nb, int above,
     }
     float lo = b.lo, hi = b.hi;
     for (int s = b.done; s < iters; ++s) {
-      const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+      const float mid = T::mid(lo, hi);
       int cnt = above + (mid <= floor_v ? n_floor : 0);
 #pragma unroll
       for (int r = 0; r < R; ++r) cnt += __popc(__ballot_sync(0xffffffffu, v[r] >= mid));
@@ -600,6 +652,7 @@ __device__ void warp_finish(Ctx& c, Bis& b, int iters, int n, int nb, int above,
 // Block 0 alone: the remaining steps over its buffer of nb values, `above`
 // values >= hi kept out of it and n_floor values equal to floor_v kept out.
 // Up to WARP_MAX values one warp runs the loop; more take block sweeps.
+template <class T>
 __device__ void local_finish(Ctx& c, Bis& b, int iters, int n, int nb, int above,
                              float floor_v, int n_floor) {
   Sweep& sw = *c.sw;
@@ -607,20 +660,20 @@ __device__ void local_finish(Ctx& c, Bis& b, int iters, int n, int nb, int above
   if (b.done >= iters) return;
   c.local_steps = iters - b.done;
   if (nb <= 32) {
-    warp_finish<1>(c, b, iters, n, nb, above, floor_v, n_floor);
+    warp_finish<T, 1>(c, b, iters, n, nb, above, floor_v, n_floor);
   } else if (nb <= 64) {
-    warp_finish<2>(c, b, iters, n, nb, above, floor_v, n_floor);
+    warp_finish<T, 2>(c, b, iters, n, nb, above, floor_v, n_floor);
   } else if (nb <= 128) {
-    warp_finish<4>(c, b, iters, n, nb, above, floor_v, n_floor);
+    warp_finish<T, 4>(c, b, iters, n, nb, above, floor_v, n_floor);
   } else if (nb <= WARP_MAX) {
-    warp_finish<WARP_MAX / 32>(c, b, iters, n, nb, above, floor_v, n_floor);
+    warp_finish<T, WARP_MAX / 32>(c, b, iters, n, nb, above, floor_v, n_floor);
   } else {
     while (b.done < iters) {
       __syncthreads();
-      fill_thresholds(b.lo, b.hi, sw.thr);
+      fill_thresholds<T>(b.lo, b.hi, sw.thr);
       for (int k = threadIdx.x; k < NBIN; k += NT) sw.tot[k] = 0;
       __syncthreads();
-      const Bins g = make_bins(b.lo, b.hi, sw.thr);
+      const Bins g = make_bins<T>(b.lo, b.hi, sw.thr);
       Common cm = {0, 0, 0, 0};
       for (int base = 0; base < nb; base += TILE) {
         const int i = base + threadIdx.x * 4;
@@ -631,7 +684,7 @@ __device__ void local_finish(Ctx& c, Bis& b, int iters, int n, int nb, int above
           if (i + 2 >= nb) v4.z = -INFINITY;
           if (i + 3 >= nb) v4.w = -INFINITY;
         }
-        bin4(sw.tot, i < nb, v4, g, cm);
+        bin4<T>(sw.tot, i < nb, v4, g, cm);
       }
       hist_common(sw.tot, cm);
       __syncthreads();
@@ -661,6 +714,13 @@ __device__ void setup(Ctx& c, Red& red, Box& box, Sweep& sw, int L, int Vp) {
   c.red = &red;
   c.box = &box;
   c.sw = &sw;
+}
+
+// A non-negative e or q with float32 subnormals set to 0, as XLA's CPU code
+// and the TPU compute them (the twin's core.sqs.flush_subnormal): at low
+// temperature they decide which value is the K-th largest.
+__device__ __forceinline__ float ftz(float v) {
+  return v < 1.17549435e-38f ? 0.0f : v;
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {
@@ -713,7 +773,7 @@ __device__ void row_stats(Ctx& c, const float* slice, float it, float* m_out, fl
       float e[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        e[j] = expf(__fsub_rn(x[j], m));
+        e[j] = ftz(expf(__fsub_rn(x[j], m)));
         se = __fadd_rn(se, e[j]);
         em = fmaxf(em, e[j]);
       }
@@ -736,29 +796,32 @@ __device__ __forceinline__ void write_info(int* info, size_t row, const Ctx& c) 
         make_int4(c.barriers, c.sweeps, c.nbuf, c.local_steps);
 }
 
-// Keep the first `limit` flagged entries in index order, given `before`
-// flagged entries in lower ranks and `mine` in this block (block-uniform).
-__device__ void trim_flags(Ctx& c, int before, int mine, int limit) {
+// K-SQS trim: keep every flagged entry with q >= hi, and of the flagged
+// entries below hi (the ties at lo) the first `limit` in index order, given
+// `before` such ties in lower ranks and `mine` in this block (block-uniform).
+// xs holds q.
+__device__ void trim_ties(Ctx& c, int before, int mine, int limit, float hi) {
   if (before + mine <= limit) return;
-  if (before >= limit) {
-    for (int i = threadIdx.x * 4; i < c.len; i += TILE)
-      *reinterpret_cast<uchar4*>(c.fl + i) = make_uchar4(0, 0, 0, 0);
-    __syncthreads();
-    return;
-  }
+  const bool none = before >= limit;   // this block keeps none of its ties
   int carry = before;
   for (int base = 0; base < c.len; base += TILE) {
     const int i = base + threadIdx.x * 4;
     const bool act = i < c.len;
     uchar4 f = make_uchar4(0, 0, 0, 0);
-    if (act) f = ldfl(c.fl + i);
-    int total;
-    int run = carry + block_excl_scan(f.x + f.y + f.z + f.w, *c.red, &total);
+    float4 q4 = make_float4(0.f, 0.f, 0.f, 0.f);
     if (act) {
-      if (f.x) f.x = (++run) <= limit;
-      if (f.y) f.y = (++run) <= limit;
-      if (f.z) f.z = (++run) <= limit;
-      if (f.w) f.w = (++run) <= limit;
+      f = ldfl(c.fl + i);
+      q4 = lds4(c.xs + i);
+    }
+    const int t0 = f.x && !(q4.x >= hi), t1 = f.y && !(q4.y >= hi);
+    const int t2 = f.z && !(q4.z >= hi), t3 = f.w && !(q4.w >= hi);
+    int run = carry, total = 0;
+    if (!none) run += block_excl_scan(t0 + t1 + t2 + t3, *c.red, &total);
+    if (act) {
+      if (t0) f.x = !none && (++run) <= limit;
+      if (t1) f.y = !none && (++run) <= limit;
+      if (t2) f.z = !none && (++run) <= limit;
+      if (t3) f.w = !none && (++run) <= limit;
       *reinterpret_cast<uchar4*>(c.fl + i) = f;
     }
     carry += total;
@@ -857,15 +920,15 @@ sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ bet
 #endif
   const size_t off = row * Vp + (size_t)c.rank * L;
   const float ellf = (float)ell;
-  const float thr = beta[row * 2];
+  const float thr = beta[row * 2], thr_hi = beta[row * 2 + 1];
 
   float m, s, emax;
   row_stats(c, logits + off, it, &m, &s, &emax);
 
-  // support: C-SQS q >= beta plus every maximum; K-SQS q >= lo, trimmed to
-  // the first exact_k candidates by index.
+  // support: C-SQS q >= beta plus every maximum; K-SQS every q >= hi and
+  // the ties in [lo, hi), trimmed to exact_k by index (lax.top_k's set).
   float smp = 0.0f;
-  int kp = 0;
+  int kp = 0, ap = 0;
   for (int base = 0; base < c.len; base += TILE) {
     const int i = base + threadIdx.x * 4;
     if (i < c.len) {
@@ -877,23 +940,26 @@ sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ bet
       int f[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        q[j] = __fdiv_rn(e[j], s);
+        q[j] = ftz(__fdiv_rn(e[j], s));
         f[j] = exact_k > 0 ? (q[j] >= thr) : ((q[j] >= thr) || am[j]);
         if (f[j]) {
           smp = __fadd_rn(smp, q[j]);
           ++kp;
+          ap += exact_k > 0 && q[j] >= thr_hi;
         }
       }
       *reinterpret_cast<float4*>(c.xs + i) = make_float4(q[0], q[1], q[2], q[3]);
       *reinterpret_cast<uchar4*>(c.fl + i) = make_uchar4(f[0], f[1], f[2], f[3]);
     }
   }
-  Part p = block_reduce(Part{smp, -INFINITY, -INFINITY, -INFINITY, -INFINITY, kp, 0}, red);
+  Part p = block_reduce(Part{smp, -INFINITY, -INFINITY, -INFINITY, -INFINITY, kp, ap}, red);
   kp = p.i;
-  int slot = exchange(c, make_float4(p.s, 0.f, 0.f, 0.f), make_int4(kp, 0, 0, 0));
+  ap = p.j;
+  int slot = exchange(c, make_float4(p.s, 0.f, 0.f, 0.f), make_int4(kp, ap, 0, 0));
   int K = fold_count(c, slot, 0, c.C);
   if (exact_k > 0 && K > exact_k) {
-    trim_flags(c, fold_count(c, slot, 0, c.rank), kp, exact_k);
+    trim_ties(c, fold_count(c, slot, 0, c.rank) - fold_count(c, slot, 1, c.rank), kp - ap,
+              exact_k - fold_count(c, slot, 1, c.C), thr_hi);
     smp = 0.0f;
     kp = 0;
     for (int base = 0; base < c.len; base += TILE) {
@@ -975,7 +1041,7 @@ sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ bet
     if (n_elig <= CAP) {
       compact(c, keys, [](float v) { return v != NEG_V; }, fold_count(c, slot, ke, c.rank));
       if (c.rank == 0) {
-        local_finish(c, b, SELECT_ITERS, n, n_elig, 0, NEG_V, Vp - n_elig);
+        local_finish<FloatTree>(c, b, SELECT_ITERS, n, n_elig, 0, NEG_V, Vp - n_elig);
         push_verdict(c, b, n, n_elig, 0);
       }
       csync(c);
@@ -993,14 +1059,14 @@ sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ bet
         ++b.done;
       }
       while (b.done < SELECT_ITERS) {
-        cluster_sweep(c, b, min(LEVELS, SELECT_ITERS - b.done), n, keys);
+        cluster_sweep<FloatTree>(c, b, min(LEVELS, SELECT_ITERS - b.done), n, keys);
         if (b.done < SELECT_ITERS && b.cnt_lo - b.cnt_hi <= CAP) {
           const float clo = b.lo, chi = b.hi;
           const int nb = b.cnt_lo - b.cnt_hi, above = b.cnt_hi;
           compact(c, keys, [=](float v) { return !(v < clo) && !(v >= chi); },
                   bin_range_sum(sw.excl, b.lo_bin, b.hi_bin, red));
           if (c.rank == 0) {
-            local_finish(c, b, SELECT_ITERS, n, nb, above, 0.0f, 0);
+            local_finish<FloatTree>(c, b, SELECT_ITERS, n, nb, above, 0.0f, 0);
             push_verdict(c, b, n, nb, above);
           }
           csync(c);
@@ -1088,12 +1154,20 @@ sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ bet
   write_info(info, row, c);
 }
 
-// One cluster per row: bracket [lo, hi] around the K-th largest probability,
-// count(q >= lo) >= K and count(q >= hi) < K, as the `iters`-step loop from
-// [0, max q] gives it.  info (optional) as for sqs_fused_kernel.
+// One cluster per row: [lo, hi] with lo the exact K-th largest probability
+// (0 where it underflows) and hi the float32 after it, so count(q >= lo) >= K
+// and count(q >= hi) < K.  The search starts from [0, the float after max q]
+// (valid for 1 <= K <= Vp), narrows it by one cluster sweep of the float
+// loop's midpoints (LEVELS steps: in the usual row a bracket max q / 256
+// wide around the K-th value, holding few values, which compact at once),
+// and bisects the bit patterns of what is left down to adjacent ones: at
+// most 23 steps when that bracket lies above 0, 30 from 0.  The reference's
+// 40-step float loop cannot go below max q * 2^-40, so where (x_max - x_K)
+// / T exceeds 40 ln 2 its lo stays 0 (ROADMAP Queue 3 item 12); this
+// search has no such floor.  info (optional) as for sqs_fused_kernel.
 __global__ void __launch_bounds__(NT, 1)
 topk_threshold_kernel(const float* __restrict__ logits, float* __restrict__ tau,
-                      int* __restrict__ info, int Vp, int L, float it, int K, int iters) {
+                      int* __restrict__ info, int Vp, int L, float it, int K) {
   __shared__ Red red;
   __shared__ Box box;
   __shared__ Sweep sw;
@@ -1107,28 +1181,32 @@ topk_threshold_kernel(const float* __restrict__ logits, float* __restrict__ tau,
   float m, s, emax;
   row_stats(c, logits + row * Vp + (size_t)c.rank * L, it, &m, &s, &emax);
   PROF(c, 4);
-  Bis b = {0.0f, __fdiv_rn(emax, s), 0, 0, 0, 0, 0};
+  Bis b = {0.0f, __uint_as_float(__float_as_uint(__fdiv_rn(emax, s)) + 1u), 0, 0, 0, 0, 0};
   // the first sweep turns e into q = e / s as it reads it
   bool first = true;
   auto q = [&](int i) {
     float4 v = lds4(c.xs + i);
     if (first) {
-      v = make_float4(__fdiv_rn(v.x, s), __fdiv_rn(v.y, s), __fdiv_rn(v.z, s), __fdiv_rn(v.w, s));
+      v = make_float4(ftz(__fdiv_rn(v.x, s)), ftz(__fdiv_rn(v.y, s)), ftz(__fdiv_rn(v.z, s)),
+                      ftz(__fdiv_rn(v.w, s)));
       *reinterpret_cast<float4*>(c.xs + i) = v;
     }
     return v;
   };
-  while (b.done < iters) {
-    cluster_sweep(c, b, min(LEVELS, iters - b.done), K, q);
-    first = false;
-    if (b.done < iters && b.cnt_lo - b.cnt_hi <= CAP) {
+  cluster_sweep<FloatTree>(c, b, LEVELS, K, q);
+  first = false;
+  const int steps = bit_steps(b.lo, b.hi);
+  b.done = 0;
+  while (b.done < steps) {
+    if (b.cnt_lo - b.cnt_hi <= CAP) {
       const float clo = b.lo, chi = b.hi;
       const int nb = b.cnt_lo - b.cnt_hi, above = b.cnt_hi;
       compact(c, q, [=](float v) { return !(v < clo) && !(v >= chi); },
               bin_range_sum(sw.excl, b.lo_bin, b.hi_bin, red));
-      if (c.rank == 0) local_finish(c, b, iters, K, nb, above, 0.0f, 0);
+      if (c.rank == 0) local_finish<BitTree>(c, b, steps, K, nb, above, 0.0f, 0);
       break;
     }
+    cluster_sweep<BitTree>(c, b, min(LEVELS, steps - b.done), K, q);
   }
   if (c.rank == 0 && threadIdx.x == 0) {
     tau[row * 2 + 0] = b.lo;
@@ -1194,8 +1272,7 @@ extern "C" int sqs_fused_launch(const float* logits, const float* beta, int* b_o
 }
 
 extern "C" int topk_threshold_launch(const float* logits, float* tau, int* info, int B, int Vp,
-                                     int C, int L, float inv_temp, int K, int iters,
-                                     void* stream) {
+                                     int C, int L, float inv_temp, int K, void* stream) {
   return launch_cluster(topk_threshold_kernel, C, L, B, (cudaStream_t)stream, logits, tau, info,
-                        Vp, L, inv_temp, K, iters);
+                        Vp, L, inv_temp, K);
 }

@@ -47,8 +47,9 @@ def sqs_threshold(logits, beta, temperature: float = 1.0,
 
 def sqs_topk(logits, K: int, temperature: float = 1.0,
              ell: int = 100) -> SQSResult:
-    """K-SQS edge step: bisection top-K threshold (softmax fused in) +
-    fused quantizer."""
+    """K-SQS edge step: the exact top-K threshold (softmax fused in) +
+    fused quantizer, keeping the K largest probabilities (ties at the K-th
+    by index) at any temperature."""
     lp, V = pad_logits(logits)
     it = 1.0 / max(temperature, 1e-4)
     tau = k.topk_threshold(lp, K, inv_temp=it)

@@ -10,34 +10,39 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.slq import ranks
-from repro_torch.core.sqs import softmax
+from repro_torch.core.sqs import flushed_softmax, softmax
 
 
 def softmax_padded(logits_padded, inv_temp: float):
     """q = softmax(logits * inv_temp) over a -inf padded row (padding -> 0),
     the probabilities ``repro.kernels.ops.sqs_topk`` computes before its
-    threshold search."""
-    x = logits_padded.float() * inv_temp
-    m = x.amax(-1, keepdim=True)
-    e = torch.exp(x - m)
-    return e / e.sum(-1, keepdim=True)
+    threshold search, subnormals flushed as XLA's are."""
+    return flushed_softmax(logits_padded.float() * inv_temp)
 
 
 def sqs_fused_ref(logits_padded, beta, *, inv_temp: float, ell: int,
                   exact_k: int = 0):
     """Twin of the fused SQS kernel over the whole batch.
     logits_padded: (B, Vp) f32 (-inf padded); beta: (B, 2) f32 [lo, hi].
-    Returns (b (B,Vp) i32, mask (B,Vp) i32, stats (B,4) f32)."""
+    Returns (b (B,Vp) i32, mask (B,Vp) i32, stats (B,4) f32).
+
+    K-SQS (``exact_k``) keeps every q >= hi and the earliest ties in
+    [lo, hi) up to exact_k.  The reference keeps the first exact_k of
+    q >= lo by index, which can cut a larger q for a tie: where fewer
+    than K probabilities are nonzero (lo = 0), it keeps zeros and drops
+    the whole mass (ROADMAP Queue 3 item 12)."""
     x = logits_padded.float() * inv_temp
     m = x.amax(-1, keepdim=True)
-    e = torch.exp(x - m)
-    s = e.sum(-1, keepdim=True)
-    q = e / s
+    q = flushed_softmax(x)
 
     if exact_k > 0:
-        cand = q >= beta[:, 0:1]
-        csum = torch.cumsum(cand.to(torch.int32), -1)
-        mask = cand & (csum <= exact_k)
+        # every q >= hi, then of the ties in [lo, hi) the earliest by index
+        # up to exact_k: lax.top_k's index set for the exact bracket
+        above = q >= beta[:, 1:2]
+        tie = (q >= beta[:, 0:1]) & ~above
+        room = exact_k - above.sum(-1, keepdim=True)
+        mask = above | (tie & (torch.cumsum(tie.to(torch.int32), -1)
+                               <= room))
     else:
         mask = (q >= beta[:, 0:1]) | (x >= m)
     qm = torch.where(mask, q, 0.0)
@@ -61,22 +66,26 @@ def sqs_fused_ref(logits_padded, beta, *, inv_temp: float, ell: int,
     return b.to(torch.int32), mask.to(torch.int32), stats
 
 
-def topk_threshold_ref(q_padded, K: int, iters: int = 40):
-    """Twin of the top-K bisection: (B, 2) = [lo, hi] with
-    count(q >= lo) >= K and count(q >= hi) < K."""
+def topk_threshold_ref(q_padded, K: int):
+    """Twin of the top-K search: (B, 2) = [lo, hi] with lo the exact K-th
+    largest of each row (0 where it underflows) and hi the next float32
+    above it, so count(q >= lo) >= K and count(q >= hi) < K.
+
+    The reference's search (``repro.kernels.ref.topk_threshold_ref``, a
+    40-step bisection of [0, max q]) cannot go below max q * 2^-40, so
+    where the K-th value lies lower its lo stays 0 and the exact-K trim
+    keeps the first K tokens by index (ROADMAP Queue 3 item 12); the
+    kernel's bracket, and this one, are exact at any temperature."""
     q = q_padded.float()
-    hi = q.amax(-1, keepdim=True)
-    lo = torch.zeros_like(hi)
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        take = (q >= mid).sum(-1, keepdim=True) >= K
-        lo, hi = torch.where(take, mid, lo), torch.where(take, hi, mid)
+    if not 1 <= K <= q.shape[-1]:
+        raise ValueError(f"K must lie in [1, {q.shape[-1]}], got {K}")
+    lo = kth_largest_ref(q, K)[..., None]
+    hi = torch.nextafter(lo, torch.full_like(lo, torch.inf))
     return torch.cat([lo, hi], -1)
 
 
 def kth_largest_ref(q, K: int):
-    """Sort-based K-th largest of each row (an independent oracle for
-    the bisection; the tests' only)."""
+    """Sort-based K-th largest of each row (the top-K search's oracle)."""
     return torch.topk(q, K).values[..., -1]
 
 

@@ -15,11 +15,16 @@ a function of Vp alone, so both kernels split a row alike and compute
 bit-identical q).  Block r holds slice r of the row in shared memory, read
 from device memory once; blocks swap partials through distributed shared
 memory and fold them in rank order, so the float sums have one fixed
-order.  The two bisections (the top-K bracket and the +-1 select) keep
-the sequential loop's midpoints and decisions bit for bit: a sweep bins
-every value against the next ``LEVELS`` levels of the midpoint tree and
-replays them from the bin counts, and once the values left in [lo, hi)
-fit ``CAP`` they are compacted into block 0, which finishes alone.
+order.  Both searches (the top-K bracket and the +-1 select) are
+bisections cut into sweeps: a sweep bins every value against the next
+``LEVELS`` levels of the midpoint tree and replays them from the bin
+counts, and once the values left in [lo, hi) fit ``CAP`` they are
+compacted into block 0, which finishes alone.  The select keeps the
+reference's 40-step loop bit for bit (``SELECT_ITERS``).  The top-K
+search narrows [0, max q] by one sweep of float midpoints and then
+bisects the float32 bit patterns, which order as the non-negative values
+do, down to adjacent patterns: its lo is the exact K-th largest at any
+temperature, where the reference's float loop stops at max q * 2^-40.
 
 Each wrapper takes the plain twin in ``kernels.ref`` for a tensor on the
 CPU, and for a CUDA tensor launches its kernel on the current stream or
@@ -38,7 +43,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.build import BASE_FLAGS, KernelLibrary, raise_on
 
 LANE = 128
-BISECT_ITERS = 40
+SELECT_ITERS = 40                  # steps of the +-1 select's bisection
 # Mirrors of the .cu's constants: threads per block, the largest slice a
 # block holds, the largest cluster, bisection levels per sweep, bins per
 # sweep, the compaction buffer, the largest buffer one warp finishes, the
@@ -67,7 +72,7 @@ def _bind(lib):
     lib.sqs_fused_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i,
                                      p]
     lib.sqs_fused_launch.restype = i
-    lib.topk_threshold_launch.argtypes = [p, p, p, i, i, i, i, f, i, i, p]
+    lib.topk_threshold_launch.argtypes = [p, p, p, i, i, i, i, f, i, p]
     lib.topk_threshold_launch.restype = i
 
 
@@ -204,18 +209,21 @@ def sqs_fused(logits_padded, beta, *, inv_temp: float, ell: int,
     return b, mask, out[2 * B * Vp:].view(torch.float32).view(B, 4)
 
 
-def topk_threshold(logits_padded, K: int, *, inv_temp: float,
-                   iters: int = BISECT_ITERS, info=None):
-    """Softmax of the padded logits fused with the K-SQS bisection:
-    (B, 2) = [lo, hi], count(q >= lo) >= K, count(q >= hi) < K."""
+def topk_threshold(logits_padded, K: int, *, inv_temp: float, info=None):
+    """Softmax of the padded logits fused with the K-SQS top-K search:
+    (B, 2) = [lo, hi], lo the exact K-th largest probability of each row
+    (0 where it underflows) and hi the next float32 above it, so
+    count(q >= lo) >= K and count(q >= hi) < K."""
     dev = logits_padded.device
     if dev.type == "cpu":
         return ref.topk_threshold_ref(
-            ref.softmax_padded(logits_padded, inv_temp), K, iters)
+            ref.softmax_padded(logits_padded, inv_temp), K)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_rows(logits_padded)
     B, Vp = logits_padded.shape
+    if not 1 <= K <= Vp:
+        raise ValueError(f"K must lie in [1, {Vp}], got {K}")
     _check_info(info, B, dev)
     C, L = plan_cluster(Vp)
     tau = logits_padded.new_empty(2 * B)    # shaped after the launch
@@ -223,7 +231,7 @@ def topk_threshold(logits_padded, K: int, *, inv_temp: float,
     err = _call(dev, lib.topk_threshold_launch,
                 logits_padded.data_ptr(), tau.data_ptr(),
                 None if info is None else info.data_ptr(), B, Vp, C, L,
-                float(inv_temp), int(K), int(iters))
+                float(inv_temp), int(K))
     _raise_on(err, "topk_threshold", C, L)
     LAUNCHES["topk_threshold"] += 1
     return tau.view(B, 2)

@@ -143,6 +143,26 @@ def test_conformal_update_bits(alpha, eta):
         jconf.backtrack_wire((0.5, 0.25), 1)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_backtrack_selects_kept_updates(seed):
+    """``backtrack`` against ``repro.core.conformal.backtrack``: the
+    reference's own case (tests/test_conformal.py), then random (L+1, B)
+    trajectories with n_keep in [-2, L + 3] (clipped to [0, L])."""
+    traj = np.asarray([[0.5, 0.5], [0.4, 0.45], [0.3, 0.40], [0.2, 0.35]],
+                      np.float32)
+    keep = np.asarray([2, 0])
+    np.testing.assert_array_equal(tconf.backtrack(_t(traj), _t(keep)).numpy(),
+                                  np.asarray(jconf.backtrack(traj, keep)))
+    rng = np.random.default_rng(seed)
+    L, B = int(rng.integers(1, 9)), int(rng.integers(1, 6))
+    traj = rng.uniform(-1e-3, 2e-3, (L + 1, B)).astype(np.float32)
+    keep = rng.integers(-2, L + 4, B)
+    got = tconf.backtrack(_t(traj), _t(keep))
+    assert got.dtype == torch.float32 and got.shape == (B,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jconf.backtrack(traj, keep)))
+
+
 @pytest.mark.parametrize("V,ell", [(512, 100), (151936, 100), (50257, 7)])
 def test_token_bits_and_gap_code(V, ell):
     rng = np.random.default_rng(V)

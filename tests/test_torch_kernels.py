@@ -66,16 +66,27 @@ def test_sqs_topk_twin_vs_reference(V, K, ell):
                             use_ref=use_ref), t, ell)
 
 
-@pytest.mark.parametrize("V,K", [(1000, 1), (1000, 10), (1000, 999),
-                                 (4096, 64)])
-def test_topk_twin_brackets_kth_largest(V, K):
-    lp = torch.from_numpy(_logits(K, 4, V))
+@pytest.mark.parametrize("V,K,temp,scale", [
+    (1000, 1, 1.0, 3.0), (1000, 10, 1.0, 3.0), (1000, 999, 1.0, 3.0),
+    (4096, 64, 1.0, 3.0), (4096, 16, 0.2, 8.0), (4096, 16, 0.05, 3.0),
+    (512, 64, 0.05, 8.0)])
+def test_topk_twin_brackets_kth_largest(V, K, temp, scale):
+    """lo is the exact K-th largest probability and hi the float after it,
+    also at low temperature, where the K-th value of some rows lies below
+    max q * 2^-40 (the reference's bisection floor) or, at T 0.05,
+    underflows to 0."""
+    lp = torch.from_numpy(_logits(K, 4, V, scale))
     lp = tops.pad_logits(lp)[0]
-    tau = tk.topk_threshold(lp, K, inv_temp=1.0)
-    q = tref.softmax_padded(lp, 1.0)
-    kth = torch.topk(q, K, dim=-1).values[:, -1]
-    assert (tau[:, 0] <= kth).all() and (kth <= tau[:, 1]).all()
+    tau = tk.topk_threshold(lp, K, inv_temp=1.0 / temp)
+    q = tref.softmax_padded(lp, 1.0 / temp)
+    kth = tref.kth_largest_ref(q, K)
+    assert torch.equal(tau[:, 0], kth)
+    assert torch.equal(tau[:, 1], torch.nextafter(kth, torch.ones_like(kth)))
     assert ((q >= tau[:, 0:1]).sum(-1) >= K).all()
+    assert ((q >= tau[:, 1:2]).sum(-1) < K).all()
+    if temp < 1.0:                        # rows past the reference's floor
+        assert (kth < q.amax(-1) * 2.0 ** -40).any()
+        assert (kth == 0).any() or temp > 0.05
 
 
 def test_unpadded_vs_padded_vocab():

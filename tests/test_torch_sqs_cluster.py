@@ -6,10 +6,13 @@ over ranks) and cuts its two bisections (the top-K bracket and the +-1
 select) into multi-level sweeps over the midpoint tree plus a compaction
 into one block.  The kernels run only on a card; here a plain numpy
 emulation of the same steps is held against the sequential loops: the
-port's twins (``ref.topk_threshold_ref``, ``ref.select_n_ref``) and the
-reference's Pallas kernels (interpreted), bit for bit, and the emulated
-kernel's integer outputs against the reference's at the seeds of
-``tests/test_torch_kernels.py``."""
+top-K search (one sweep of float midpoints, then the float32 bit
+patterns down to adjacent ones) against its loop and the exact K-th
+largest (``ref.kth_largest_ref``, the twin ``ref.topk_threshold_ref``)
+at any temperature, the +-1 select against the port's twin
+(``ref.select_n_ref``) and the reference's Pallas kernel (interpreted),
+bit for bit, and the emulated kernel's integer outputs against the
+reference's at the seeds of ``tests/test_torch_kernels.py``."""
 import numpy as np
 import pytest
 
@@ -32,13 +35,38 @@ M = (1 << tk.LEVELS) - 1                 # midpoints per sweep
 # ----------------------------------------------------------------------
 # the cut bisection, as the kernel runs it
 # ----------------------------------------------------------------------
-def thresholds(lo, hi):
+def float_mid(lo, hi):
+    """The float loop's midpoint (``FloatTree``)."""
+    return HALF * (lo + hi)
+
+
+def bits(x):
+    return int(np.asarray(x, F).view(np.uint32))
+
+
+def from_bits(u):
+    return np.asarray(u, np.uint32).view(F)[()]
+
+
+def bit_mid(lo, hi):
+    """The midpoint of two non-negative floats' bit patterns (``BitTree``)."""
+    a = bits(lo)
+    return from_bits(a + ((bits(hi) - a) >> 1))
+
+
+def bit_steps(lo, hi):
+    """Steps from [lo, hi) to adjacent bit patterns (``bit_steps``)."""
+    span = bits(hi) - bits(lo)
+    return (span - 1).bit_length() if span > 1 else 0
+
+
+def thresholds(lo, hi, mid_of=float_mid):
     """thr[1..M]: the next LEVELS levels of the loop's midpoint tree from
     (lo, hi), in order (thr[2^(LEVELS-1)] is the next mid)."""
     thr = np.zeros(M + 1, F)
 
     def node(p, d, lo, hi):
-        mid = HALF * (lo + hi)
+        mid = mid_of(lo, hi)
         thr[p] = mid
         if d:
             node(p - d, d // 2, lo, mid)
@@ -78,9 +106,9 @@ class Bis:
         self.done += steps
 
 
-def cluster_sweep(bis, v, iters, n, path):
+def cluster_sweep(bis, v, iters, n, path, mid_of=float_mid):
     """One sweep over every value: bins of the next levels, replay."""
-    thr = thresholds(bis.lo, bis.hi)
+    thr = thresholds(bis.lo, bis.hi, mid_of)
     hist = np.bincount(bins(v, bis.lo, bis.hi, thr), minlength=M + 3)
     sfx = suffix(hist)
     bis.cnt_lo, bis.cnt_hi = int(sfx[1]), int(sfx[M + 2])
@@ -90,12 +118,12 @@ def cluster_sweep(bis, v, iters, n, path):
 
 
 def local_finish(bis, buf, iters, n, above, floor_v=F(0), n_floor=0,
-                 path=None):
+                 path=None, mid_of=float_mid):
     """Block 0 alone over its buffer: one warp runs the loop itself up to
     WARP_MAX values, block sweeps take larger buffers."""
     if buf.size <= tk.WARP_MAX:
         for _ in range(bis.done, iters):
-            mid = HALF * (bis.lo + bis.hi)
+            mid = mid_of(bis.lo, bis.hi)
             cnt = above + (n_floor if mid <= floor_v else 0) \
                 + int((buf >= mid).sum())
             if cnt >= n:
@@ -106,7 +134,7 @@ def local_finish(bis, buf, iters, n, above, floor_v=F(0), n_floor=0,
         path.append("warp")
         return
     while bis.done < iters:
-        thr = thresholds(bis.lo, bis.hi)
+        thr = thresholds(bis.lo, bis.hi, mid_of)
         hist = np.bincount(bins(buf, bis.lo, bis.hi, thr), minlength=M + 3)
         bis.replay(min(tk.LEVELS, iters - bis.done), thr, suffix(hist), n,
                    above, floor_v, n_floor)
@@ -117,27 +145,56 @@ def in_range(v, lo, hi):
     return ~(v < lo) & ~(v >= hi)
 
 
-def topk_cut(q, K, iters, cap=tk.CAP):
-    """topk_threshold_kernel's bracket of one row q; returns (lo, hi,
-    path)."""
+def topk_start(q):
+    """[0, the float after max q]: count(q >= lo) >= K for K <= V and
+    count(q >= hi) = 0 < K."""
+    return Bis(0.0, from_bits(bits(q.max()) + 1))
+
+
+def topk_cut(q, K, cap=tk.CAP):
+    """topk_threshold_kernel's search on one row q: one cluster sweep of
+    float midpoints, then bit-pattern sweeps until the values in
+    [lo, hi) fit ``cap`` and compact into block 0, which finishes;
+    returns (lo, hi, path)."""
     q = q.astype(F)
-    bis, path = Bis(0.0, q.max()), []
-    while bis.done < iters:
-        cluster_sweep(bis, q, iters, K, path)
+    bis, path = topk_start(q), []
+    cluster_sweep(bis, q, tk.LEVELS, K, path)
+    steps = bit_steps(bis.lo, bis.hi)
+    bis.done = 0
+    while bis.done < steps:
         nb = bis.cnt_lo - bis.cnt_hi
-        if bis.done < iters and nb <= cap:
+        if nb <= cap:
             buf = q[in_range(q, bis.lo, bis.hi)]
             assert buf.size == nb
             path.append(f"compact {nb}")
-            local_finish(bis, buf, iters, K, bis.cnt_hi, path=path)
+            local_finish(bis, buf, steps, K, bis.cnt_hi, path=path,
+                         mid_of=bit_mid)
             break
+        cluster_sweep(bis, q, steps, K, path, bit_mid)
     return bis.lo, bis.hi, path
+
+
+def topk_loop(q, K):
+    """The sequential search the kernel cuts into sweeps: LEVELS float
+    steps, then bit-pattern steps, one count over the row a step."""
+    q = q.astype(F)
+    bis = topk_start(q)
+    for step in range(tk.LEVELS + 32):
+        mid_of = float_mid if step < tk.LEVELS else bit_mid
+        if step >= tk.LEVELS and bits(bis.hi) - bits(bis.lo) <= 1:
+            break
+        mid = mid_of(bis.lo, bis.hi)
+        if int((q >= mid).sum()) >= K:
+            bis.lo = mid
+        else:
+            bis.hi = mid
+    return bis.lo, bis.hi
 
 
 def select_cut(v, elig, n, cap=tk.CAP):
     """sqs_fused_kernel's +-1 select of one row: the n largest eligible
     keys, ties to the earliest index; returns (selection, path)."""
-    iters = tk.BISECT_ITERS
+    iters = tk.SELECT_ITERS
     vv = np.where(elig, v, NEG_V).astype(F)
     n_elig = int(elig.sum())
     bis, path = Bis(NEG_V, vv.max() + F(1e-6)), []
@@ -180,6 +237,7 @@ def select_cut(v, elig, n, cap=tk.CAP):
 # ----------------------------------------------------------------------
 def _row(kind, V, seed):
     rng = np.random.default_rng(seed)
+    temp = 1.0
     if kind == "logits":
         x = rng.standard_normal(V) * 3
     elif kind == "tied":                  # runs of equal probabilities
@@ -189,41 +247,54 @@ def _row(kind, V, seed):
     elif kind == "plateau":               # one peak over V - 1 equal values
         x = np.zeros(V)
         x[0] = 5.0
-    else:                                 # near-uniform
+    elif kind == "near":                  # near-uniform
         x = rng.standard_normal(V) * 0.01
-    e = np.exp(x - x.max())
+    else:                                 # "std S at T t": low temperature
+        std, temp = (float(w) for w in kind.split()[1::2])
+        x = rng.standard_normal(V) * std
+    e = np.exp((x - x.max()) / temp)
     return (e / e.sum()).astype(F)
 
 
-_pallas_topk = jax.jit(jk.topk_threshold_call, static_argnames=("K", "iters"))
+# row kinds: (kind, V, K).  At std 8 and T 0.2 (and std 3, T 0.05) the K-th
+# value lies far below max q * 2^-40, where the reference's 40-step float
+# loop stops at lo = 0; at std 8 and T 0.05 it is a subnormal at K 3 and
+# underflows to 0 in float32 at K 64.
+TOPK_ROWS = [("logits", 4096, 1), ("logits", 4096, 4096),
+             ("logits", 4096, 64), ("tied", 4096, 700), ("equal", 1024, 64),
+             ("plateau", 4096, 64), ("near", 30000, 64),
+             ("std 8 T 0.2", 4096, 16), ("std 8 T 0.2", 4096, 1),
+             ("std 3 T 0.05", 4096, 16), ("std 8 T 0.05", 512, 3),
+             ("std 8 T 0.05", 512, 64)]
 
 
-def _loop_bracket(q, K, iters):
-    twin = tref.topk_threshold_ref(torch.from_numpy(q)[None], K,
-                                   iters)[0].numpy()
-    pallas = np.asarray(_pallas_topk(jnp.asarray(q)[None], K=K,
-                                     iters=iters))[0]
-    np.testing.assert_array_equal(twin, pallas)
-    return twin
-
-
-@pytest.mark.parametrize("kind,V,K", [
-    ("logits", 4096, 1), ("logits", 4096, 4096), ("logits", 4096, 64),
-    ("tied", 4096, 700), ("equal", 1024, 64), ("plateau", 4096, 64),
-    ("near", 30000, 64)])
-@pytest.mark.parametrize("iters", [1, 7, 8, 9, 40])
-def test_topk_cut_equals_loop(kind, V, K, iters):
+@pytest.mark.parametrize("kind,V,K", TOPK_ROWS)
+@pytest.mark.parametrize("cap", [tk.CAP, 256, 16])
+def test_topk_cut_equals_loop(kind, V, K, cap):
+    """The cut search (cap 16: the compaction rarely fits; 256: block 0
+    finishes in one warp) equals its sequential loop and gives the exact
+    K-th largest and the float after it, as the twin does."""
     q = _row(kind, V, V + K)
     if kind == "tied":                    # K falls inside a run of ties
         s = np.sort(q)[::-1]
         assert s[K - 1] == s[K] or s[K - 1] == s[K - 2]
-    want = _loop_bracket(q, K, iters)
-    for cap in (tk.CAP, 16):              # 16: the compaction rarely fits
-        lo, hi, path = topk_cut(q, K, iters, cap)
-        np.testing.assert_array_equal(np.array([lo, hi]), want, err_msg=path)
-    if kind == "plateau":      # K-th value inside the plateau: never fits
-        assert topk_cut(q, K, iters, 16)[2] == \
-            ["sweep"] * -(-iters // tk.LEVELS)
+    kth = F(tref.kth_largest_ref(torch.from_numpy(q), K))
+    want = np.array([kth, np.nextafter(kth, F(np.inf))])
+    if kind == "std 8 T 0.05" and K == 64:
+        assert kth == 0                   # the K-th value underflows
+    elif kind.startswith("std") and K > 1:   # below the float loop's floor
+        assert 0 < kth < q.max() * 2.0 ** -40
+    lo, hi, path = topk_cut(q, K, cap)
+    np.testing.assert_array_equal(np.array([lo, hi]), want, err_msg=path)
+    np.testing.assert_array_equal(np.array(topk_loop(q, K)), want)
+    np.testing.assert_array_equal(
+        tref.topk_threshold_ref(torch.from_numpy(q)[None], K)[0].numpy(),
+        want)
+    if kind == "plateau" and cap == 16:   # K-th value inside the plateau:
+        bis = topk_start(q)               # never fits, every step sweeps
+        cluster_sweep(bis, q, tk.LEVELS, K, [])
+        steps = bit_steps(bis.lo, bis.hi)
+        assert path == ["sweep"] * (1 + -(-steps // tk.LEVELS))
 
 
 _pallas_select = jax.jit(jk._select_n)     # one compile per row length
@@ -337,17 +408,19 @@ def cluster_sum(vals, L):
     return s
 
 
-def emulated_kernel(lp, thr, it, ell, exact_k, C, L):
+def emulated_kernel(lp, thr, it, ell, exact_k, C, L, thr_hi=None):
     """sqs_fused_kernel on one padded row: cluster sums in rank order, the
-    K-SQS trim, the rounding and the cut select."""
+    K-SQS trim (every q >= thr_hi, the earliest ties in [thr, thr_hi)),
+    the rounding and the cut select."""
     x = lp * F(it)
     m = x.max()
     e = np.exp(x - m)
     s = cluster_sum(e, L)
     q = e / s
     if exact_k > 0:
-        cand = q >= thr
-        mask = cand & (np.cumsum(cand) <= exact_k)
+        above = q >= thr_hi
+        tie = (q >= thr) & ~above
+        mask = above | (tie & (np.cumsum(tie) <= exact_k - above.sum()))
     else:
         mask = (q >= thr) | (x >= m)
     sm = cluster_sum(np.where(mask, q, F(0)), L)
@@ -402,10 +475,12 @@ def test_emulated_cluster_kernel_topk(V, K, ell):
     for r in range(3):
         x = lp[r]
         e = np.exp(x - x.max())
-        lo, hi, _ = topk_cut(e / cluster_sum(e, L), K, tk.BISECT_ITERS)
-        b, mask, Kr, q = emulated_kernel(x, lo, 1.0, ell, K, C, L)
+        q = e / cluster_sum(e, L)
+        lo, hi, _ = topk_cut(q, K)
+        assert lo == F(tref.kth_largest_ref(torch.from_numpy(q), K))
+        b, mask, Kr, q = emulated_kernel(x, lo, 1.0, ell, K, C, L, hi)
         assert Kr == K and b.sum() == ell
-        assert (q >= lo).sum() >= K
+        assert (q >= lo).sum() >= K and (q >= hi).sum() < K
         np.testing.assert_array_equal(mask[:V], np.asarray(j.mask)[r])
         np.testing.assert_array_equal(
             b[:V], np.round(np.asarray(j.q_hat)[r] * ell))
