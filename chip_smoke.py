@@ -19,7 +19,9 @@ Phases:
      them), and at the vocabularies of the other
      dense configs (granite-3-8b's 49155, padded to 49280; stablelm-12b's
      100352; deepseek-7b's 102400) and of the paper's pair (gptneo-1.3b's
-     50257, padded to 50304); the two flash-decode kernels over
+     50257, padded to 50304), and C-SQS at beta 0 and -0.01 on rows
+     padded past V 50257 and 1003 (K == V, nothing past V, sum b ==
+     ell); the two flash-decode kernels over
      the reference's sweeps in f32, bf16 and int8, paged against dense
      on gathered pages, and the serving shape (nq 16, nkv 2, hd 128,
      bf16);
@@ -31,13 +33,20 @@ Phases:
      draft call under torch.profiler (device-busy share, SQS kernel time);
   4. SQS kernel, twin and library timings at the main path's inputs, with
      each kernel's cluster plan and the barriers of each call;
+     sqs_fused within SQS_FUSED_SLACK of its time before the C-SQS
+     support was cut to the true vocabulary;
   5. continuous-batching serving (``ServeSession.run_trace``) of one Poisson
      trace (SERVE_REQUESTS requests on SLOTS slots) at full width: dense
      lockstep, paged lockstep, paged pipelined with speculation, and int8
      paged against int8 dense, with per-request streams equal across them,
      a request admitted into a slot that another had finished in (each of
      the first three), the launch counts of that path and the measured
-     per-round t_slm / t_llm;
+     per-round t_slm / t_llm; (b) a confirmed speculative round against
+     another slot's replay: (i) on the full-width slot engine, dense and
+     paged, the round after it equal with and without a draft of another
+     slot between its drafting and its confirmation; (ii) the smoke
+     qwen2.5-3b as its own draft at T 0.35 over a seeded trace,
+     pipelined equal to lockstep, with its speculation hits;
   6. the flash-decode kernels on the page pools that serving wrote (4
      slots admitted through the slot API with prompts of 17 to 4001
      tokens, two paged rounds): against their twins and each other (paged
@@ -202,13 +211,15 @@ Phases:
      rates, bits, mean K, the largest dropped mass of a draft and the
      winner; the phase fails if a K-SQS draft on the kernel path drops
      FAULT_DROP of its mass where torch.topk's support on the same q
-     drops less than TOPK_DROP, and prints the mass the reference's
-     search would lose on the same q at K 16 and 64.
+     drops less than TOPK_DROP, or where the mean K of a method and
+     temperature on the kernels differs from plain torch's, and prints
+     the mass the reference's search would lose on the same q at K 16
+     and 64.
 
 Every phase that drives a path sets the kernels' launch counts to 0
 just before it and reads them just after; the SQS rows of the kernels
-line add the launches of phases 3, 5, 8, 9, 10, 11, 12, 13, 14, 15 and
-16.
+line add the launches of phases 3, 5, 5 (b), 8, 9, 10, 11, 12, 13, 14,
+15 and 16.
 
 All four kernels, their twins and the yardsticks are timed by device
 time: a CUDA graph of GRAPH_CALLS calls is replayed between two events
@@ -251,8 +262,11 @@ BATCH, PROMPT_LEN, L_MAX, ROUNDS = 4, 16, 8, 3
 ATOL_F32, ATOL_BF16, ATOL_INT8_ORACLE = 2e-5, 5e-3, 0.02
 # serving: slots, page size, the requests of the phase-5 and phase-8
 # traces (more than the slots: some queue and are admitted into a slot
-# that a finished request freed), and the phase-6 prompt lengths / capacity
+# that a finished request freed) and the range of their new tokens (the
+# serving walls are host-bound: at 8-12 tokens a slow host took phases
+# 1-16 to 1188.7 s), and the phase-6 prompt lengths / capacity
 SLOTS, PAGE, SERVE_REQUESTS = 4, 16, 6
+SERVE_NEW_TOKENS = (5, 8)
 LONG_PROMPTS, LONG_CACHE = (17, 1025, 2561, 4001), 4112
 # phase 7: slots, positions per slot, pool pages (+1 trash), pos range
 POOL_SLOTS, POOL_CAP, POOL_PAGES = 32, 4096, 8192
@@ -389,7 +403,8 @@ def sqs_path(info):
 DROPPED_ATOL = 1e-6     # dropped mass: 1 - (a float32 sum of up to V terms)
 
 
-def compare_sqs(lp, beta2, it, ell, exact_k, label, beta2_twin=None):
+def compare_sqs(lp, beta2, it, ell, exact_k, label, beta2_twin=None,
+                V=None):
     """Kernel vs twin on one input (K-SQS: each with its own top-K
     threshold, as ops.sqs_topk chains them).  Every output is held:
     b, mask and all four stats [dropped, K, sum_b_raw, max_logit].
@@ -404,16 +419,17 @@ def compare_sqs(lp, beta2, it, ell, exact_k, label, beta2_twin=None):
     exactly 1 (the cascade of the +-1 correction); and the row holds a
     boundary index that starts it (a differing mask or b entry, or a
     rounding boundary inside the mask when sum_b_raw differs).  Returns
-    (differing rows, rows not excused)."""
+    (differing rows, rows not excused).  ``V``: the true vocabulary of
+    a padded row (None: every lane), given to both."""
     import numpy as np
     import torch
     from repro_torch.kernels import ref, sqs_fused as k
     if beta2_twin is None:
         beta2_twin = beta2
     kb, km, ks = k.sqs_fused(lp, beta2, inv_temp=it, ell=ell,
-                             exact_k=exact_k)
+                             exact_k=exact_k, V=V)
     rb, rm, rs = ref.sqs_fused_ref(lp, beta2_twin, inv_temp=it, ell=ell,
-                                   exact_k=exact_k)
+                                   exact_k=exact_k, V=V)
     torch.cuda.synchronize()
     kb, km, ks = kb.cpu().numpy(), km.cpu().numpy(), ks.cpu().numpy()
     rb, rm, rs = rb.cpu().numpy(), rm.cpu().numpy(), rs.cpu().numpy()
@@ -687,9 +703,45 @@ def phase_kernels_vocabularies():
                   f"differs from twin in {int((tau != tau_r).any(-1).sum())}"
                   f" rows; sqs {nd} differing rows, {nb} unexcused")
             n_bad += nb
+    n_bad += padded_csqs(gen, dev)
     check(n_bad == 0, f"{n_bad} kernel rows differ from the twin outside "
           f"the {ULP_RULE}-ulp boundary rule at the other vocabularies")
     print(f"  phase 2 vocabularies: {time.perf_counter() - t0:.1f} s")
+
+
+# C-SQS at beta <= 0 on padded rows: the paper pair's vocabulary and one
+# far from a multiple of 128
+PADDED_VOCABS, NONPOS_BETAS = (50257, 1003), (0.0, -0.01)
+
+
+def padded_csqs(gen, dev):
+    """C-SQS at beta 0 and -0.01, where every true token joins the
+    support, on rows padded with -inf past V: the kernel against its twin,
+    K == V (no padded lane counted), no support or count past V, and
+    sum b == ell.  Returns the rows not excused."""
+    import torch
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.kernels.ops import pad_logits
+    n_bad = 0
+    for V in PADDED_VOCABS:
+        lp = pad_logits(torch.randn((BATCH, V), generator=gen, device=dev)
+                        * 3.0)[0]
+        for beta in NONPOS_BETAS:
+            beta2 = torch.full((BATCH, 2), beta, device=dev)
+            label = f"sqs_threshold V={V} Vp={lp.shape[1]} beta={beta}"
+            nd, nb = compare_sqs(lp, beta2, 1.0, 100, 0, label, V=V)
+            b, mask, stats = k.sqs_fused(lp, beta2, inv_temp=1.0, ell=100,
+                                         V=V)
+            check(bool((stats[:, 1] == V).all()), f"{label}: K "
+                  f"{stats[:, 1].tolist()} != V")
+            check(not bool(mask[:, V:].any() or b[:, V:].any()),
+                  f"{label}: support or counts past V")
+            check(bool((b.sum(-1) == 100).all()), f"{label}: sum b "
+                  f"{b.sum(-1).tolist()}")
+            print(f"  {label}: K {stats[:, 1].tolist()} == V, nothing past "
+                  f"V, sum b == 100; {nd} differing rows, {nb} unexcused")
+            n_bad += nb
+    return n_bad
 
 
 def decode_case(label, run, twins):
@@ -972,6 +1024,12 @@ def timed(fn):
     return graph_ms(fn), cuda_ms(fn)
 
 
+# sqs_fused's graph-replay time at phase 4's input before the C-SQS
+# support was cut to the true vocabulary (PERF.md, kernel table row 1),
+# and how far above it the kernel may now run
+SQS_FUSED_MS, SQS_FUSED_SLACK = 0.0407, 0.05
+
+
 def phase_timing(engines, launches):
     """Both SQS kernels at the next draft step's logits of the csqs and
     ksqs runs: checked against their twins, timed (kernels, twins,
@@ -1063,6 +1121,13 @@ def phase_timing(engines, launches):
               + (f"; torch.topk {tl:.4f} ms (graph), {tl1:.4f} ms (one "
                  f"call); softmax_padded + torch.topk {tsl:.4f} ms (graph)"
                  if tl is not None else ""))
+        if name == "sqs_fused":
+            check(t <= SQS_FUSED_MS * (1.0 + SQS_FUSED_SLACK),
+                  f"sqs_fused {t:.4f} ms at the main-path input, more than "
+                  f"{SQS_FUSED_SLACK:.0%} over {SQS_FUSED_MS} ms")
+            print(f"  sqs_fused: {t / SQS_FUSED_MS:.3f} of the "
+                  f"{SQS_FUSED_MS} ms before the padded-lane cut (at most "
+                  f"{1.0 + SQS_FUSED_SLACK:.2f})")
         result.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sqs_fused.cu",
@@ -1161,7 +1226,8 @@ def phase_serving(dev, tc, dc, tp, dp):
           f"bf16, csqs, L_max {L_MAX}, {SLOTS} slots, fixed clock t_slm "
           f"50 ms / t_llm 30 ms")
     trace = dict(n_requests=SERVE_REQUESTS, rate_rps=4.0,
-                 prompt_len=PROMPT_LEN, min_new_tokens=8, max_new_tokens=12,
+                 prompt_len=PROMPT_LEN, min_new_tokens=SERVE_NEW_TOKENS[0],
+                 max_new_tokens=SERVE_NEW_TOKENS[1],
                  vocab=tc.vocab, seed=5)
     k.reset_launches()
     da.reset_launches()
@@ -1192,6 +1258,145 @@ def phase_serving(dev, tc, dc, tp, dp):
     print(f"  int8 paged streams equal int8 dense: {len(d8)} requests")
     del tp8, dp8
     torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 5 (b): a confirmed speculative round against another slot's replay
+# ----------------------------------------------------------------------
+# (i) L_max 4 and a budget under two drafts' bits: round t sends n_live =
+# 1 <= L_max - 2 drafts; (ii) tests/test_torch_spec_replay.py's serving
+# setting and its trace of seed 7, on the smoke qwen2.5-3b as its own
+# draft (seeded on the card)
+SPEC_L_MAX, SPEC_BUDGET = 4, 1.0
+SPEC_SERVE = dict(L_max=SPEC_L_MAX, bit_budget=400.0, temperature=0.35)
+SPEC_TRACE = dict(n_requests=6, rate_rps=20.0, prompt_len=10,
+                  min_new_tokens=16, max_new_tokens=24, vocab=512, seed=7)
+
+
+def forced_interleaving(eng, V, interleave, page_size):
+    """On 2 slots: draft both, speculate slot 0, verify slot 1 and (with
+    ``interleave``) draft it again, which replays slot 0; confirm slot
+    0's premise, accept its speculative round, draft slot 0.  Returns
+    that round's (n_live of round t, drafts, packed bytes)."""
+    import numpy as np
+    from repro_torch.core import wire
+    eng.init_slots(2, 48, page_size=page_size)
+    rng = np.random.default_rng(0)
+    for s in range(2):
+        eng.admit_slot(s, rng.integers(0, V, PROMPT_LEN), seed=s + 11)
+    recs = eng.draft_slots([0, 1])
+    spec = eng.draft_speculative_slot(0, recs[0])
+    check(spec is not None, "phase 5 (b): no speculative round")
+    vb = eng.verify_slots({1: recs[1].packed})
+    eng.apply_verdict_slot(1, vb.verdicts[1], recs[1])
+    if interleave:
+        eng.draft_slots([1])
+    r0, sr = recs[0], spec.round
+    hit = wire.VerdictPayload(n_accept=r0.n_live, new_token=spec.in_x,
+                              beta_next=float(r0.betas[r0.n_live]))
+    check(eng.spec_premise_holds(spec, r0, hit), "phase 5 (b): premise")
+    eng.apply_verdict_slot(0, hit, r0, shrink=False)
+    eng.commit_speculative(spec)
+    eng.apply_verdict_slot(0, wire.VerdictPayload(
+        n_accept=sr.n_live, new_token=int(sr.drafts[sr.n_live]),
+        beta_next=float(sr.betas[sr.n_live])), sr)
+    rec = eng.draft_slots([0])[0]
+    return r0.n_live, rec.drafts.tolist(), rec.packed
+
+
+def count_replayed_hits(eng):
+    """Wrap ``eng``'s edge so that it counts the confirmed speculative
+    rounds that a draft of another slot replayed between their drafting
+    and their confirmation; returns the one-entry counter."""
+    edge, open_, n = eng.edge, {}, [0]
+    spec, draft, commit = (edge.draft_speculative, edge.draft,
+                           edge.commit_speculative)
+
+    def on_spec(slot, *a):
+        open_[slot] = False
+        return spec(slot, *a)
+
+    def on_draft(mask):
+        for s in open_:
+            open_[s] = open_[s] or not mask[s]
+        for s in [int(s) for s in mask.nonzero()[0]]:
+            open_.pop(s, None)
+        return draft(mask)
+
+    def on_commit(sp):
+        n[0] += open_.pop(sp.slot, False)
+        return commit(sp)
+    edge.draft_speculative, edge.draft = on_spec, on_draft
+    edge.commit_speculative = on_commit
+    return n
+
+
+def phase_spec_replay(dev, tc, dc, tp, dp):
+    """(i) the forced interleaving on the full-width slot engine, dense
+    and paged: the round after a confirmed speculative round gives the
+    same drafts and payload bytes with and without another slot's draft
+    between; (ii) the smoke self-pair served pipelined and lockstep at
+    T 0.35: equal streams, with the speculation hits printed.  Returns
+    the SQS launches."""
+    from repro_torch import bridge, configs
+    from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,
+                                         MethodConfig)
+    from repro_torch.kernels import sqs_fused as k
+    from repro_torch.serve import (ServeConfig, ServeSession, TraceConfig,
+                                   poisson_trace)
+    t0 = time.perf_counter()
+    print(f"phase 5 (b): a confirmed speculative round against another "
+          f"slot's replay ({tc.name} <- {dc.name}, csqs, L_max "
+          f"{SPEC_L_MAX}, budget {SPEC_BUDGET} bits)")
+    k.reset_launches()
+    eng = EdgeCloudEngine(dc, dp, tc, tp, MethodConfig("csqs"),
+                          EngineConfig(L_max=SPEC_L_MAX,
+                                       bit_budget=SPEC_BUDGET),
+                          seed=0, device=dev)
+    for page_size in (0, PAGE):
+        alone, mixed = (forced_interleaving(eng, tc.vocab, inter, page_size)
+                        for inter in (False, True))
+        layout = f"paged({page_size})" if page_size else "dense"
+        check(alone[0] <= SPEC_L_MAX - 2, f"phase 5 (b) {layout}: n_live "
+              f"{alone[0]}")
+        check(mixed == alone, f"phase 5 (b) {layout}: the round after the "
+              f"confirmed speculative round moved with the replay: drafts "
+              f"{mixed[1]} vs {alone[1]}, payloads of {len(mixed[2])} and "
+              f"{len(alone[2])} bytes")
+        print(f"  (i) {layout}: n_live {alone[0]}; next round's drafts "
+              f"{alone[1]} and its {len(alone[2])} payload bytes equal with "
+              f"and without slot 1's draft")
+    del eng
+    cfg = configs.smoke_variant(configs.get_config("qwen2.5-3b"))
+    m = bridge.seeded_model(cfg, 1, device=dev)
+    streams = {}
+    for pipe in ("lockstep", "pipelined"):
+        eng = EdgeCloudEngine(cfg, m, cfg, m, MethodConfig(
+            "csqs", alpha=5e-3, eta=5e-2), EngineConfig(**SPEC_SERVE),
+            seed=0, device=dev)
+        replayed = count_replayed_hits(eng)
+        rep = ServeSession(eng, ServeConfig(
+            max_batch=SLOTS, cache_len=64, t_slm_s=0.01, t_llm_s=0.02,
+            pipeline=pipe)).run_trace(poisson_trace(TraceConfig(
+                **SPEC_TRACE)))
+        check(rep.n_finished == SPEC_TRACE["n_requests"],
+              f"phase 5 (b) {pipe}: {rep.n_finished} finished")
+        streams[pipe] = {r.rid: tuple(r.tokens) for r in rep.requests}
+    check(streams["pipelined"] == streams["lockstep"],
+          "phase 5 (b): pipelined streams differ from lockstep")
+    check(rep.n_spec_hits > 0, "phase 5 (b): no speculation hit")
+    print(f"  (ii) smoke self-pair, T {SPEC_SERVE['temperature']}, budget "
+          f"{SPEC_SERVE['bit_budget']:.0f}, trace seed {SPEC_TRACE['seed']}:"
+          f" pipelined == lockstep "
+          f"({sum(map(len, streams['lockstep'].values()))} tokens); "
+          f"{rep.n_spec_hits} hits ({replayed[0]} replayed by another "
+          f"slot's draft before their confirmation), {rep.n_spec_misses} "
+          f"misses")
+    launches = dict(k.LAUNCHES)
+    check(launches["sqs_fused"] > 0, f"phase 5 (b) launched {launches}")
+    print(f"  phase 5 (b): launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1625,8 +1830,10 @@ def phase_tcp(dev, tc, dc, tp, dp, tmp):
               f"{proc.pid} on port {port} (up in "
               f"{time.perf_counter() - t0:.1f} s)")
         trace = dict(n_requests=SERVE_REQUESTS, rate_rps=4.0,
-                     prompt_len=PROMPT_LEN, min_new_tokens=8,
-                     max_new_tokens=12, vocab=tc.vocab, seed=5,
+                     prompt_len=PROMPT_LEN,
+                     min_new_tokens=SERVE_NEW_TOKENS[0],
+                     max_new_tokens=SERVE_NEW_TOKENS[1], vocab=tc.vocab,
+                     seed=5,
                      cells=TCP_CELLS)
         launches = {}
         for label, pipeline, codec, batch in (
@@ -2204,7 +2411,7 @@ def crossover_full_width(dev, paths, smi):
           f"B {CROSS_BATCH}, {CROSS_ROUNDS} rounds a sweep after 2 warmup "
           f"rounds, L_max 6, K-SQS K 16, C-SQS alpha 5e-4 eta 1e-3, l 100, "
           f"Vp 50304; {smi[0]}")
-    launches = {}
+    launches, mean_K = {}, {}
     for use_kernels in (True, False):
         label = "fused kernels" if use_kernels else "plain torch"
         data = SyntheticLM(DataConfig(vocab=tc.vocab, seq_len=48, batch=16,
@@ -2258,6 +2465,16 @@ def crossover_full_width(dev, paths, smi):
                   + extra)
         print("    winner by latency: " + ", ".join(
             f"T={T} {w}" for T, (_, _, w) in tp_mod.winners(rows).items()))
+        mean_K[use_kernels] = {(r["method"], r["temperature"]): r["mean_K"]
+                               for r in rows}
+    # the kernel path counts the true vocabulary: where beta < 0 C-SQS
+    # keeps every token, V of them, not the padded width
+    check(mean_K[True] == mean_K[False], "mean K on the kernels differs "
+          f"from plain torch: {mean_K[True]} vs {mean_K[False]}")
+    check(max(mean_K[True].values()) <= tc.vocab, "mean K past V: "
+          f"{mean_K[True]}")
+    print(f"  mean K on the kernels == plain torch's at every T and method "
+          f"(largest {max(mean_K[True].values()):.2f}, V {tc.vocab})")
     del tp, dp
     return launches
 
@@ -3910,8 +4127,10 @@ def run_phases(torch, t_start, smi, dry):
     tp, dp = eng.cloud.model, eng.edge.model
     del engines, eng
     serve_launches = phase_serving(dev, tc, dc, tp, dp)
+    replay_launches = phase_spec_replay(dev, tc, dc, tp, dp)
     for r in rows:
-        r["launches"] += serve_launches[r["name"]]
+        r["launches"] += (serve_launches[r["name"]]
+                          + replay_launches.get(r["name"], 0))
     rows += phase_served_pools(dev, tc, dc, tp, dp)
     phase_long_pool(dev, tc, rows)
     with tempfile.TemporaryDirectory() as tmp:

@@ -19,13 +19,22 @@ through three hooks (``_init_peer_slots``, ``_admit_peer``,
 ``_push_tables``), the per-slot ``verify_slots`` and the lockstep
 ``prefill`` / ``run_round`` / ``run``.
 
-Both actors keep the reference's replay registers — the inputs of every
-row's last committed step — and feed them to rows outside a call's
-commit mask, so those rows re-execute their previous step bit for bit:
-a request's stream does not depend on which requests share the batch or
-on how calls interleave in time.  State tensors are replaced, never
-written in place (registers alias them); only the KV caches are written
-in place.
+Both actors keep replay registers — the inputs of the last round that
+wrote each row's cache — and feed them to rows outside a call's commit
+mask, so those rows re-execute that round bit for bit: a request's
+stream does not depend on which requests share the batch or on how
+calls interleave in time.  A speculative draft (``draft_speculative``)
+moves its slot's registers to its own inputs at once, while the key
+chain and the calibrated scale advance only when the verdict confirms
+it (``commit_speculative``): a later call that drafts another slot then
+rewrites the speculative round's KV with the same values.  The
+reference keeps the registers at the last committed round until the
+confirmation, so there such a call overwrites the speculative round's
+KV past pos + n_live + 1 with the committed round's drafts, and the
+round after a confirmed speculative round reads keys of tokens that are
+not in the stream (ROADMAP Queue 3 item 14).  State tensors are
+replaced, never written in place (registers alias them); only the KV
+caches are written in place.
 
 Models with sequential state (Mamba, mLSTM, sLSTM layers) cannot mask a
 rejected draft away the way a KV entry is masked: the draft keeps a
@@ -162,13 +171,20 @@ def ring_spare(L_max: int) -> int:
       - the cloud's verify writes pos .. pos + L_max in one call, all of
         its queries at or after pos: L_max;
       - a pipelined speculative draft (``draft_speculative``) starts at
-        pos + n_live + 1 <= pos + L_max + 1 and writes L_max + 1
-        positions, up to pos + 2 L_max + 1, while the slot's replay
-        registers still hold pos: a later call that drafts another slot
-        replays this one from pos.  2 L_max + 1.
-    With one slot fewer, that replay reads the speculative draft's last
-    key as position pos + 1 - W, inside its window."""
-    return 2 * L_max + 1
+        pos_next = pos + n_live + 1 <= pos + L_max + 1 and writes L_max + 1
+        positions, up to pos + 2 L_max + 1.  It moves the slot's replay
+        registers to its own inputs, so a later call that drafts another
+        slot replays it at pos_next and rewrites the same keys; the
+        lowest query still to come is the corrective draft after a miss,
+        at pos + T + 1 >= pos + 1 (T accepted).  2 L_max.
+    With one slot fewer, a corrective draft after a miss at T = 0 that
+    follows a speculative round of L_max live drafts reads that round's
+    last key as position pos + 2 - W, inside its window.  The reference
+    keeps a slot's registers at pos until the verdict confirms the
+    speculative round, so its replay from pos rewrites that round's keys
+    with round t's drafts (ROADMAP Queue 3 item 14), and reaches
+    2 L_max + 1 past its next query."""
+    return 2 * L_max
 
 
 def is_stateful(cfg: ModelConfig) -> bool:
@@ -217,9 +233,6 @@ class SpecDraft:
     the committed position and are masked/overwritten."""
     slot: int
     in_x: int                     # premise: bonus token guess
-    in_pos: int                   # premise: pos after full accept
-    in_beta: float                # premise: β after full accept
-    base_key: torch.Tensor        # (2,) key consumed (replay register)
     new_key: torch.Tensor         # (2,) key chain advance on commit
     round: PendingRound           # the speculative round's record
     # calibrated-budget EMA advance, applied only on commit (so a
@@ -514,11 +527,18 @@ class EdgeDraftEngine:
                           beta_next: float) -> SpecDraft:
         """Optimistic continuation: draft round t+1 under the premise
         that every live round-t draft is accepted and the bonus token
-        equals the edge's own continuation sample.  Commits NOTHING —
-        the key chain advance is stored in the record and applied only
-        by ``commit_speculative`` when the verdict confirms the
-        premise.  (Cache writes land beyond the committed position and
-        are masked / overwritten if the premise fails.)"""
+        equals the edge's own continuation sample.  Commits no stream
+        state: the key chain advance and the calibrated scale are stored
+        in the record and applied only by ``commit_speculative`` when the
+        verdict confirms the premise.  The slot's replay registers move
+        to this round's inputs now, as they name the last round that
+        wrote the slot's cache: a replay rewrites this round's KV bit for
+        bit.  On a miss the corrective draft starts at pos + T + 1 <=
+        pos_next, writes every position before a later query reads it,
+        and resets the registers; in paged mode the miss's shrink maps
+        the speculative pages past the kept length to the trash page
+        before the next call pushes the tables, so a replay before that
+        draft writes into no page another slot holds."""
         if self.stateful:
             raise StatefulModelError(
                 "speculative continuation requires a positional (KV) draft "
@@ -535,24 +555,22 @@ class EdgeDraftEngine:
                                                dtype=torch.float32,
                                                device=dev), self.rep_beta)
         key_in = torch.where(mj[:, None], self.keys, self.rep_key)
-        base_key = self.keys[slot].clone()
         ys, new_keys, t_slm = self._run_draft(x_in, pos_in, beta_in, key_in)
+        # the registers name the last round that wrote the slot's cache
+        self.rep_x, self.rep_pos, self.rep_beta = x_in, pos_in, beta_in
+        self.rep_key = key_in
         batch = self._build_batch(ys, onehot, t_slm)
-        return SpecDraft(slot=slot, in_x=int(x_guess), in_pos=int(pos_next),
-                         in_beta=float(beta_next), base_key=base_key,
+        return SpecDraft(slot=slot, in_x=int(x_guess),
                          new_key=new_keys[slot].clone(),
                          round=self.pending_round(batch, slot),
                          scale_next=batch.scale_next)
 
     def commit_speculative(self, spec: SpecDraft):
         """The verdict confirmed the premise: advance the key chain and
-        replay registers exactly as a real draft() commit would have."""
-        s = spec.slot
-        self.keys = _set(self.keys, s, spec.new_key)
-        self.rep_x = _set(self.rep_x, s, spec.in_x)
-        self.rep_pos = _set(self.rep_pos, s, spec.in_pos)
-        self.rep_beta = _set(self.rep_beta, s, spec.in_beta)
-        self.rep_key = _set(self.rep_key, s, spec.base_key)
+        the calibrated scale exactly as a real draft() commit would have
+        (the replay registers already hold the speculative round's
+        inputs, set when it was drafted)."""
+        self.keys = _set(self.keys, spec.slot, spec.new_key)
         self.commit_scales(spec.scale_next)
 
     # -- verdict application -------------------------------------------

@@ -906,8 +906,8 @@ __device__ void push_verdict(Ctx& c, const Bis& b, int n, int nb, int above) {
 __global__ void __launch_bounds__(NT, 1)
 sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ beta,
                  int* __restrict__ b_out, int* __restrict__ mask_out,
-                 float* __restrict__ stats, int* __restrict__ info, int Vp, int L, float it,
-                 int ell, int exact_k) {
+                 float* __restrict__ stats, int* __restrict__ info, int V, int Vp, int L,
+                 float it, int ell, int exact_k) {
   __shared__ Red red;
   __shared__ Box box;
   __shared__ Sweep sw;
@@ -925,8 +925,10 @@ sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ bet
   float m, s, emax;
   row_stats(c, logits + off, it, &m, &s, &emax);
 
-  // support: C-SQS q >= beta plus every maximum; K-SQS every q >= hi and
-  // the ties in [lo, hi), trimmed to exact_k by index (lax.top_k's set).
+  // support: C-SQS q >= beta plus every maximum, of the V true tokens (a
+  // padded lane has q = 0, which beta <= 0 would keep); K-SQS every q >= hi
+  // and the ties in [lo, hi), trimmed to exact_k by index (lax.top_k's set,
+  // which never reaches a padded lane: V >= K).
   float smp = 0.0f;
   int kp = 0, ap = 0;
   for (int base = 0; base < c.len; base += TILE) {
@@ -941,7 +943,8 @@ sqs_fused_kernel(const float* __restrict__ logits, const float* __restrict__ bet
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         q[j] = ftz(__fdiv_rn(e[j], s));
-        f[j] = exact_k > 0 ? (q[j] >= thr) : ((q[j] >= thr) || am[j]);
+        f[j] = exact_k > 0 ? (q[j] >= thr)
+                           : (((q[j] >= thr) || am[j]) && c.rank * L + i + j < V);
         if (f[j]) {
           smp = __fadd_rn(smp, q[j]);
           ++kp;
@@ -1265,10 +1268,11 @@ static int launch_cluster(void (*kern)(A...), int C, int L, int B, cudaStream_t 
 }
 
 extern "C" int sqs_fused_launch(const float* logits, const float* beta, int* b_out,
-                                int* mask_out, float* stats, int* info, int B, int Vp, int C,
-                                int L, float inv_temp, int ell, int exact_k, void* stream) {
+                                int* mask_out, float* stats, int* info, int B, int V, int Vp,
+                                int C, int L, float inv_temp, int ell, int exact_k,
+                                void* stream) {
   return launch_cluster(sqs_fused_kernel, C, L, B, (cudaStream_t)stream, logits, beta, b_out,
-                        mask_out, stats, info, Vp, L, inv_temp, ell, exact_k);
+                        mask_out, stats, info, V, Vp, L, inv_temp, ell, exact_k);
 }
 
 extern "C" int topk_threshold_launch(const float* logits, float* tau, int* info, int B, int Vp,

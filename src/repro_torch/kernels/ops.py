@@ -35,13 +35,15 @@ def _result(b, mask, stats, V: int, ell: int) -> SQSResult:
 
 def sqs_threshold(logits, beta, temperature: float = 1.0,
                   ell: int = 100) -> SQSResult:
-    """C-SQS edge step, fused:  softmax(T) → support {q ≥ β} → dropped
-    mass → lattice counts with Σb = ℓ exact.  logits: (B, V); beta: (B,)."""
+    """C-SQS edge step, fused:  softmax(T) → support {q ≥ β} of the V
+    true tokens (K <= V at any β, as ``core.sqs.sparsify_threshold``) →
+    dropped mass → lattice counts with Σb = ℓ exact.  logits: (B, V);
+    beta: (B,)."""
     lp, V = pad_logits(logits)
     beta2 = torch.stack([beta, beta], -1).float().contiguous()
     b, mask, stats = k.sqs_fused(lp, beta2,
                                  inv_temp=1.0 / max(temperature, 1e-4),
-                                 ell=ell)
+                                 ell=ell, V=V)
     return _result(b, mask, stats, V, ell)
 
 

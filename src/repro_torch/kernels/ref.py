@@ -21,10 +21,15 @@ def softmax_padded(logits_padded, inv_temp: float):
 
 
 def sqs_fused_ref(logits_padded, beta, *, inv_temp: float, ell: int,
-                  exact_k: int = 0):
+                  exact_k: int = 0, V=None):
     """Twin of the fused SQS kernel over the whole batch.
-    logits_padded: (B, Vp) f32 (-inf padded); beta: (B, 2) f32 [lo, hi].
+    logits_padded: (B, Vp) f32 (-inf padded past the V true tokens; V
+    None: every lane is one); beta: (B, 2) f32 [lo, hi].
     Returns (b (B,Vp) i32, mask (B,Vp) i32, stats (B,4) f32).
+
+    C-SQS keeps q >= beta and every maximum of the V true tokens: a
+    padded lane has q = 0, which beta <= 0 would keep (the reference's
+    Pallas path does, and counts Vp in K where its jnp rule counts V).
 
     K-SQS (``exact_k``) keeps every q >= hi and the earliest ties in
     [lo, hi) up to exact_k.  The reference keeps the first exact_k of
@@ -44,7 +49,9 @@ def sqs_fused_ref(logits_padded, beta, *, inv_temp: float, ell: int,
         mask = above | (tie & (torch.cumsum(tie.to(torch.int32), -1)
                                <= room))
     else:
-        mask = (q >= beta[:, 0:1]) | (x >= m)
+        in_vocab = torch.arange(q.shape[-1], device=q.device) < \
+            (q.shape[-1] if V is None else V)
+        mask = ((q >= beta[:, 0:1]) | (x >= m)) & in_vocab
     qm = torch.where(mask, q, 0.0)
     sm = qm.sum(-1, keepdim=True)
     K = mask.to(torch.float32).sum(-1, keepdim=True)

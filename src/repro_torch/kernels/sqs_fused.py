@@ -69,8 +69,8 @@ LAUNCHES = {"sqs_fused": 0, "topk_threshold": 0}
 
 def _bind(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sqs_fused_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f, i, i,
-                                     p]
+    lib.sqs_fused_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i,
+                                     i, p]
     lib.sqs_fused_launch.restype = i
     lib.topk_threshold_launch.argtypes = [p, p, p, i, i, i, i, f, i, p]
     lib.topk_threshold_launch.restype = i
@@ -173,15 +173,21 @@ def _raise_on(err: int, name: str, C: int, L: int):
 
 
 def sqs_fused(logits_padded, beta, *, inv_temp: float, ell: int,
-              exact_k: int = 0, info=None):
+              exact_k: int = 0, info=None, V=None):
     """Fused softmax -> support -> lattice counts with sum b == ell.
-    logits_padded: (B, Vp) f32 (-inf padded); beta: (B, 2) f32 [lo, hi].
-    Returns (b (B,Vp) i32, mask (B,Vp) i32, stats (B,4) f32 =
-    [dropped, K, sum_b_raw, max_logit])."""
+    logits_padded: (B, Vp) f32 (-inf padded past the V true tokens; V
+    None: every lane is one); beta: (B, 2) f32 [lo, hi].  The C-SQS
+    support never holds a lane at or past V.  Returns (b (B,Vp) i32,
+    mask (B,Vp) i32, stats (B,4) f32 = [dropped, K, sum_b_raw,
+    max_logit])."""
     dev = logits_padded.device
+    V = logits_padded.shape[-1] if V is None else int(V)
+    if not 1 <= V <= logits_padded.shape[-1]:
+        raise ValueError(f"V must lie in [1, {logits_padded.shape[-1]}], "
+                         f"got {V}")
     if dev.type == "cpu":
         return ref.sqs_fused_ref(logits_padded, beta, inv_temp=inv_temp,
-                                 ell=ell, exact_k=exact_k)
+                                 ell=ell, exact_k=exact_k, V=V)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _check_rows(logits_padded)
@@ -201,7 +207,7 @@ def sqs_fused(logits_padded, beta, *, inv_temp: float, ell: int,
     err = _call(dev, lib.sqs_fused_launch,
                 logits_padded.data_ptr(), beta.data_ptr(), base,
                 base + 4 * B * Vp, base + 8 * B * Vp,
-                None if info is None else info.data_ptr(), B, Vp, C, L,
+                None if info is None else info.data_ptr(), B, V, Vp, C, L,
                 float(inv_temp), int(ell), int(exact_k))
     _raise_on(err, "sqs_fused", C, L)
     LAUNCHES["sqs_fused"] += 1

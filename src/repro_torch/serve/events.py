@@ -35,7 +35,15 @@ starts at verdict arrival, exactly where lockstep would start it — so
 mis-speculation never makes the pipeline slower than lockstep, and the
 PRNG discipline (the corrective draft re-consumes the same per-round
 key the speculation used) keeps token streams BIT-IDENTICAL to lockstep
-either way.
+either way.  That also holds when another slot drafts between a
+speculative draft and its verdict: the speculative draft moved its
+slot's replay registers to its own inputs, so the other slot's call
+rewrites the speculative KV with the same values
+(``core.engine.EdgeDraftEngine.draft_speculative``).  The reference
+replays the slot's last committed round there instead, which
+overwrites the speculative KV, and its pipelined streams can leave its
+lockstep streams once a speculative round is confirmed (ROADMAP Queue 3
+item 14).
 
 Pipelined mode needs positional (attention-KV) draft/target caches,
 which is all the port serves so far.  Paged serving is supported with a

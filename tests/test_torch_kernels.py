@@ -1,17 +1,31 @@
 """The port's SQS kernel wrappers against the reference's: on a CPU
 tensor the wrappers run the plain twins, which must give the reference
 Pallas kernel's (interpreted) and its jnp oracle's q̂, support and K
-exactly, over the sweep of tests/test_kernels.py (V <= 50257).  The
-Hopper kernels themselves run only on a card: the ``cuda`` tests hold
-them against the twins there and skip elsewhere."""
+exactly, over the sweep of tests/test_kernels.py (V <= 50257).  On a
+vocabulary padded to a multiple of 128 the fused C-SQS path keeps the
+padded lanes out of its support at every β, as the reference's jnp rule
+``repro.core.sqs.sparsify_threshold`` and the port's plain path do; the
+reference's Pallas path counts them in K at β <= 0 (ROADMAP Queue 3
+item 13).  The Hopper kernels themselves run only on a card: the
+``cuda`` tests hold them against the twins there and skip elsewhere."""
+import dataclasses
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import bits as jbits  # noqa: E402
+from repro.core import sqs as jsqs  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import sqs_fused as jk  # noqa: E402
+from repro_torch import bridge, configs  # noqa: E402
+from repro_torch.core import bits as tbits  # noqa: E402
+from repro_torch.core import sqs as tsqs  # noqa: E402
+from repro_torch.core.engine import (EdgeCloudEngine, EngineConfig,  # noqa: E402
+                                     MethodConfig, summarize)
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import sqs_fused as tk  # noqa: E402
@@ -89,13 +103,109 @@ def test_topk_twin_brackets_kth_largest(V, K, temp, scale):
         assert (kth == 0).any() or temp > 0.05
 
 
-def test_unpadded_vs_padded_vocab():
-    logits = _logits(5, 2, 1003)           # not a multiple of 128
-    beta = torch.full((2,), 1e-3)
-    t = tops.sqs_threshold(torch.from_numpy(logits), beta, ell=100)
-    assert t.q_hat.shape == (2, 1003)
-    _same(jops.sqs_threshold(jnp.asarray(logits), jnp.asarray(beta.numpy()),
-                             ell=100), t)
+# the reference runs its jnp rule jitted inside its engine
+_jnp_threshold = jax.jit(jsqs.sparsify_threshold, static_argnums=2)
+
+
+def _csqs_bits(r, V, ell=100):
+    """The engine's C-SQS bits of one result: eq. (1)'s token bits and
+    the gap-coded bits (``EdgeDraftEngine._sqs_bits``)."""
+    K = torch.as_tensor(np.array(r.K)).float()
+    mask = torch.as_tensor(np.array(r.mask))
+    return np.stack([
+        tbits.token_bits(V, K, ell, adaptive=True).numpy(),
+        (tbits.gap_code_subset_bits(mask)
+         + tbits.payload_bits(K, ell)).numpy()])
+
+
+@pytest.mark.parametrize("beta", [1e-3, 0.0, -0.01])
+def test_unpadded_vs_padded_vocab(beta):
+    """V 1003, padded to 1024: the fused C-SQS path's q̂, support, K,
+    dropped mass and bits equal the port's plain path and the
+    reference's jnp rule at every β (K = V at β <= 0), and the
+    reference's Pallas path at β > 0; its counts hold Σb = ℓ and b = 0
+    from V on."""
+    V = 1003                               # not a multiple of 128
+    logits = _logits(5, 2, V)
+    b = np.full((2,), beta, np.float32)
+    t = tops.sqs_threshold(torch.from_numpy(logits), torch.from_numpy(b),
+                           ell=100)
+    assert t.q_hat.shape == (2, V)
+    q = tsqs.softmax_temp(torch.from_numpy(logits), 1.0)
+    plain = tsqs.sparsify_threshold(q, torch.from_numpy(b), 100)
+    rule = _jnp_threshold(jnp.asarray(q.numpy()), jnp.asarray(b), 100)
+    for want in (plain, rule):
+        _same(want, t)
+        np.testing.assert_array_equal(_csqs_bits(want, V),
+                                      _csqs_bits(t, V))
+    np.testing.assert_allclose(
+        np.asarray(jbits.token_bits(V, rule.K.astype(jnp.float32), 100,
+                                    adaptive=True)),
+        _csqs_bits(t, V)[0], rtol=1e-6)
+    pallas = jops.sqs_threshold(jnp.asarray(logits), jnp.asarray(b),
+                                ell=100)
+    if beta > 0:
+        _same(pallas, t)
+    else:
+        assert (t.K.numpy() == V).all()
+        # the reference's Pallas path keeps the padded lanes
+        assert (np.asarray(pallas.K) == tk.pad_vocab(V)).all()
+    lp = tops.pad_logits(torch.from_numpy(logits))[0]
+    b2 = torch.from_numpy(np.stack([b, b], -1))
+    cb, cm, cs = tk.sqs_fused(lp, b2, inv_temp=1.0, ell=100, V=V)
+    assert not cm[:, V:].any() and not cb[:, V:].any()
+    assert (cb.sum(-1) == 100).all()
+    assert torch.equal(cs[:, 1].to(torch.int32), t.K)
+
+
+def test_topk_padded_vocab_low_temperature():
+    """K-SQS on V 1003 at T 0.05, where some rows have fewer than K
+    nonzero probabilities: the index-ordered trim of the ties at 0 keeps
+    lanes below V only (V >= K), K stays K, Σb = ℓ, and the fused path
+    equals the port's plain top-K rule."""
+    V, K, temp = 1003, 64, 0.05
+    logits = torch.from_numpy(_logits(11, 4, V, scale=8.0))
+    q = tsqs.softmax_temp(logits, temp)
+    assert ((q > 0).sum(-1) < K).any()
+    t = tops.sqs_topk(logits, K, temperature=temp, ell=100)
+    _same(tsqs.sparsify_topk(q, K, 100), t)
+    assert (t.K == K).all()
+    it = 1.0 / max(temp, 1e-4)
+    lp = tops.pad_logits(logits)[0]
+    tau = tk.topk_threshold(lp, K, inv_temp=it)
+    cb, cm, cs = tk.sqs_fused(lp, tau, inv_temp=it, ell=100, exact_k=K,
+                              V=V)
+    assert (cm.sum(-1) == K).all() and not cm[:, V:].any()
+    assert not cb[:, V:].any() and (cb.sum(-1) == 100).all()
+
+
+def test_engine_csqs_padded_vocab_negative_beta():
+    """A C-SQS engine on a vocabulary that is not a multiple of 128 with
+    β0 < 0 (every token in the support, and β only falls): the fused
+    path gives the plain path's mean K (V, not the padded width), bits,
+    wire sizes and streams.  (The payload's β trajectory may differ in
+    float32 ulps: the kernel's dropped mass is 1 - Σq in its own sum
+    order.)"""
+    cfg = dataclasses.replace(
+        configs.smoke_variant(configs.get_config("qwen2.5-3b")), vocab=1003)
+    dcfg = configs.draft_variant(cfg, 2)
+    tm = bridge.seeded_model(cfg, 1, device="cpu")
+    dm = bridge.seeded_model(dcfg, 2, device="cpu")
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (2, 8))
+    runs = []
+    for use_kernels in (True, False):
+        eng = EdgeCloudEngine(dcfg, dm, cfg, tm, MethodConfig(
+            "csqs", alpha=5e-3, eta=5e-2, beta0=-0.01,
+            use_kernels=use_kernels), EngineConfig(L_max=3), seed=0,
+            device="cpu")
+        runs.append(eng.run(prompts, 3))
+    (kr, kt), (pr, pt) = runs
+    assert kt == pt, "token streams differ"
+    ks, ps = summarize(kr), summarize(pr)
+    assert ks["mean_K"] == ps["mean_K"] == cfg.vocab
+    for key in ("bits_per_batch", "gap_bits_per_batch",
+                "wire_bits_per_batch"):
+        assert ks[key] == ps[key], key
 
 
 @pytest.mark.parametrize("trial", range(8))
@@ -150,12 +260,13 @@ def test_kernels_vs_twin_on_card(cuda_device, B, V):
     b, m, s = tk.sqs_fused(lp, tau, inv_temp=1.0, ell=100, exact_k=64)
     assert (s[:, 1] == 64).all() and (m.sum(-1) == 64).all()
     assert (b.sum(-1) == 100).all()
-    # near-uniform rows with beta <= 0: K = V, the select sweeps the
-    # cluster before it compacts
+    # near-uniform rows with beta <= 0: K = V (no padded lane), the
+    # select sweeps the cluster before it compacts
     near = tops.pad_logits(torch.randn((B, V), generator=gen,
                                        device=cuda_device) * 0.01)[0]
     low = torch.full((B, 2), -1.0, device=cuda_device)
-    b, m, s = tk.sqs_fused(near, low, inv_temp=1.0, ell=100)
-    rb, rm, rs = tref.sqs_fused_ref(near, low, inv_temp=1.0, ell=100)
+    b, m, s = tk.sqs_fused(near, low, inv_temp=1.0, ell=100, V=V)
+    rb, rm, rs = tref.sqs_fused_ref(near, low, inv_temp=1.0, ell=100, V=V)
     assert (b.sum(-1) == 100).all() and torch.equal(m, rm)
     assert torch.equal(s[:, 1], rs[:, 1]) and torch.equal(s[:, 2], rs[:, 2])
+    assert (s[:, 1] == V).all() and not b[:, V:].any()

@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import sqs_fused as jk  # noqa: E402
+from repro_torch.core import sqs as tsqs  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import sqs_fused as tk  # noqa: E402
 
@@ -408,10 +409,11 @@ def cluster_sum(vals, L):
     return s
 
 
-def emulated_kernel(lp, thr, it, ell, exact_k, C, L, thr_hi=None):
+def emulated_kernel(lp, thr, it, ell, exact_k, C, L, thr_hi=None, V=None):
     """sqs_fused_kernel on one padded row: cluster sums in rank order, the
     K-SQS trim (every q >= thr_hi, the earliest ties in [thr, thr_hi)),
-    the rounding and the cut select."""
+    the C-SQS support of the first V lanes (V None: all), the rounding
+    and the cut select."""
     x = lp * F(it)
     m = x.max()
     e = np.exp(x - m)
@@ -422,7 +424,7 @@ def emulated_kernel(lp, thr, it, ell, exact_k, C, L, thr_hi=None):
         tie = (q >= thr) & ~above
         mask = above | (tie & (np.cumsum(tie) <= exact_k - above.sum()))
     else:
-        mask = (q >= thr) | (x >= m)
+        mask = ((q >= thr) | (x >= m)) & (np.arange(x.size) < (V or x.size))
     sm = cluster_sum(np.where(mask, q, F(0)), L)
     qt = np.where(mask, q / sm, F(0))
     b = np.where(mask, np.floor(F(ell) * qt + HALF), F(0)).astype(F)
@@ -457,11 +459,32 @@ def test_emulated_cluster_kernel_threshold(B, V):
     j = jops.sqs_threshold(jnp.asarray(logits), jnp.full((B,), 2e-3),
                            ell=100)
     for r in range(B):
-        b, mask, K, _ = emulated_kernel(lp[r], F(2e-3), 1.0, 100, 0, C, L)
+        b, mask, K, _ = emulated_kernel(lp[r], F(2e-3), 1.0, 100, 0, C, L,
+                                        V=V)
         np.testing.assert_array_equal(mask[:V], np.asarray(j.mask)[r])
         np.testing.assert_array_equal(
             b[:V], np.round(np.asarray(j.q_hat)[r] * 100))
         assert K == int(j.K[r]) and b.sum() == 100
+
+
+@pytest.mark.parametrize("beta", [0.0, -0.01])
+@pytest.mark.parametrize("V", [1003, 20600])
+def test_emulated_cluster_kernel_threshold_nonpositive_beta(V, beta):
+    """β <= 0 on a padded row (20600: two blocks, the padding in the
+    last): the support is the V true tokens, K = V, no count past V, and
+    the counts equal the port's plain C-SQS rule."""
+    logits = _logits(V, 2, V)
+    lp = _pad(logits)
+    C, L = tk.plan_cluster(lp.shape[1])
+    q = tsqs.softmax_temp(torch.from_numpy(logits), 1.0)
+    want = tsqs.sparsify_threshold(q, torch.full((2,), beta), 100)
+    for r in range(2):
+        b, mask, K, _ = emulated_kernel(lp[r], F(beta), 1.0, 100, 0, C, L,
+                                        V=V)
+        assert K == V and not mask[V:].any() and not b[V:].any()
+        np.testing.assert_array_equal(
+            b[:V], np.round(want.q_hat[r].numpy() * 100))
+        assert b.sum() == 100
 
 
 @pytest.mark.parametrize("V,K,ell", [(1000, 8, 100), (1000, 64, 100),

@@ -558,13 +558,15 @@ def test_engine_serves_past_the_wrap(window_target, window_draft, kv):
 
 def test_one_slot_short_of_the_spare_loses_keys_under_speculation(
         monkeypatch):
-    """With the ring one slot shorter than ``ring_spare`` (2 L_max), a
-    pipelined trace with speculation drafts from a lost key: a slot's
-    replay reads its speculative draft's last key as a key W back (the
-    draft's q leaves the recompute by far more than ORACLE_ATOL); the
-    lockstep paths and the cloud, which write at most L_max past their
-    next query, stay within it."""
-    monkeypatch.setattr(tengine, "ring_spare", lambda L: 2 * L)
+    """With the ring one slot shorter than ``ring_spare`` (2 L_max - 1),
+    a pipelined trace with speculation drafts from a lost key: after a
+    speculative round of L_max live drafts, a corrective draft that
+    follows a miss at T = 0 reads the speculative round's last key as a
+    key W back (the draft's q leaves the recompute by far more than
+    ORACLE_ATOL); the lockstep paths and the cloud, which write at most
+    L_max past their next query, stay within it."""
+    assert ring_spare(L_MAX) == 2 * L_MAX
+    monkeypatch.setattr(tengine, "ring_spare", lambda L: 2 * L - 1)
     rec = _serve_past_the_wrap(32, 32, "pipelined", *ACCEPT)
     worst = _worst(rec, 32, 32, "compute")
     assert worst["draft"] > 100 * ORACLE_ATOL, worst
